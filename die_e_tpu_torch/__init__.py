@@ -1,0 +1,15 @@
+"""die-e-tpu on PyTorch and CUDA: the port of ``die_e_tpu`` to one NVIDIA
+H100.
+
+The package mirrors the JAX package's layout (``core/``, ``envs/``,
+``nets/``, ``ops/``, ``search/``, ``train/``) and is held against it by the
+``tests/test_torch_*.py`` files.  It imports ``torch`` and never JAX or the
+JAX package.  Functions act on batched ``[B, ...]`` tensors; entry points
+take an explicit ``device`` and run on ``cuda`` unless the caller asks for
+``"cpu"`` (see :mod:`die_e_tpu_torch.core.device`).
+
+The two row kernels of the search tree (``ops/csrc/rows.cu``) are CUDA C++
+for ``sm_90a``, built by ``nvcc`` at first use and loaded with ``ctypes``.
+"""
+
+__version__ = "0.1.0"

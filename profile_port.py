@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Where one full-width search of the PyTorch/CUDA port spends its time.
+
+Run from the root of a checkout, on a machine with one NVIDIA GPU:
+
+    python3 profile_port.py
+
+It prints, with the card's name and power limit:
+
+* each row kernel's device time per launch, from CUDA events around a CUDA
+  graph of 100 launches (no host launch cost), beside the time of the same
+  launches back to back from Python (what the search pays);
+* the device ops (kernels, copies, fills) of one ResNet forward, one legal
+  mask and one env step at B = 1024, counted by ``torch.profiler``;
+* one backgammon search at the width of ``configs/bg_full.toml`` (1024
+  games, 100 simulations, random 256x19 weights from seed 0): its wall time without the profiler, then
+  the same search under ``torch.profiler`` tracing the device only, with
+  that run's wall time, its device busy time and busy share, its device ops
+  per simulation and those outside the forward, mask and step per descent
+  level, and the kernels that take the most device time.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+import chip_smoke
+from die_e_tpu_torch.core.config import load_config
+from die_e_tpu_torch.core.device import resolve_device
+from die_e_tpu_torch.envs import backgammon as bg
+from die_e_tpu_torch.nets.resnet import forward, make_net
+from die_e_tpu_torch.ops import rows as R
+from die_e_tpu_torch.search.alpha import alpha_search
+
+
+def kernel_device_times(dev, b, n, length, reps=100):
+    """{name: (graph_us, python_us)} per launch at [b, n, length] bf16."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    src, idx, rows, mask = chip_smoke._row_case(b, n, length, dev, gen, False)
+    calls = {
+        "gather_rows": lambda: R.gather_rows(src, idx),
+        "scatter_rows": lambda: R.scatter_rows(src, idx, rows, mask),
+    }
+    out = {}
+    for name, fn in calls.items():
+        fn()  # build before capture
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(reps):
+                fn()
+        graph_ms = chip_smoke.time_ms(graph.replay, 5, warmup=1) / reps
+        out[name] = (graph_ms * 1e3, chip_smoke.time_ms(fn, reps) * 1e3)
+    return out
+
+
+def device_profile(fn):
+    """Run ``fn`` under ``torch.profiler`` tracing the device only.
+
+    Returns (wall_s, busy_us, n_ops, device events by time) for that one run."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    n_ops = sum(e.count for e in events)
+    return wall, busy_us, n_ops, sorted(events, key=lambda e: -e.self_device_time_total)
+
+
+SEED = 0
+
+
+def main() -> int:
+    dev = resolve_device("cuda:0")
+    cfg = load_config(chip_smoke.CONFIG)
+    m = cfg.mcts
+    games, iterations = cfg.alphazero.num_self_play_batches, m.iterations
+    print(f"card: {torch.cuda.get_device_name(0)} ({chip_smoke.smi_name_power()})",
+          flush=True)
+
+    length = R.pad_actions(bg.NUM_ACTIONS)
+    for name, (graph_us, py_us) in kernel_device_times(
+            dev, games, iterations + 1, length).items():
+        print(f"{name}: {graph_us:.2f} us per launch in a CUDA graph, "
+              f"{py_us:.2f} us launched back to back from Python "
+              f"[{games}, {iterations + 1}, {length}] bf16", flush=True)
+
+    net = make_net(bg.SPEC, SEED, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    states = bg.init(torch.randint(0, 2 ** 31 - 1, (games,), generator=gen, device=dev),
+                     device=dev)
+    obs = bg.observe(states)
+    noop = torch.full((games,), bg.NOOP_ACTION, device=dev)
+    parts = {"forward": lambda: forward(net, obs), "legal_mask": lambda: bg.legal_mask(states),
+             "step": lambda: bg.step(states, noop)}
+    for fn in parts.values():
+        fn()  # warm-up: cuDNN plans
+    ops = {name: device_profile(fn)[2] for name, fn in parts.items()}
+    print("device ops per call at B=%d: %s" % (
+        games, ", ".join(f"{k} {v}" for k, v in ops.items())), flush=True)
+
+    result = {}
+
+    def search(its):
+        result["res"] = alpha_search(
+            bg.ENV, lambda o: forward(net, o), states, gen, iterations=its, c=m.c,
+            dirichlet_alpha=m.dirichlet_alpha, dirichlet_epsilon=m.dirichlet_epsilon,
+            negamax=m.negamax)
+
+    search(4)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    search(iterations)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    plain_levels = result["res"].levels
+    wall, busy_us, n_ops, events = device_profile(lambda: search(iterations))
+    levels = result["res"].levels
+    share = busy_us / 1e6 / wall
+    print(f"search: B={games} iterations={iterations} 256x19: "
+          f"{plain_wall * 1e3:.1f} ms without the profiler ({plain_levels} descent levels); "
+          f"under the profiler (device tracing only) {wall * 1e3:.1f} ms "
+          f"({levels} levels), device busy {busy_us / 1e3:.1f} ms = {100 * share:.1f}% "
+          f"of that run, idle {100 - 100 * share:.1f}%; {n_ops} device ops, "
+          f"{n_ops / iterations:.0f} per simulation", flush=True)
+    # the root and every simulation run one forward and one legal mask;
+    # every descent level one step
+    rest = n_ops - (iterations + 1) * (ops["forward"] + ops["legal_mask"]) \
+        - levels * ops["step"]
+    print(f"device ops outside forward, legal mask and step (descent, allocation, "
+          f"expansion, backup): {rest}, {rest / levels:.1f} per descent level", flush=True)
+    print("top device events by time (ms, calls, name):", flush=True)
+    for e in events[:15]:
+        print(f"  {e.self_device_time_total / 1e3:9.2f} {e.count:7d}  {e.key[:110]}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -25,3 +25,8 @@ if os.environ.get("DIE_E_TEST_TPU", "0") != "1":
 
 # make the repo root importable (die_e_tpu, parity)
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the PyTorch port's kernels); skips without one")

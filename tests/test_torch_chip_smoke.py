@@ -1,0 +1,105 @@
+"""``chip_smoke.py`` and the port as the card's machine sees them.
+
+That machine has PyTorch but no JAX, flax, optax or orbax, and the JAX
+package is not to be imported there.  The CPU rehearsal runs every phase
+of ``chip_smoke.py`` at a tiny size in a subprocess where those are
+unimportable; without a card the script's default run must fail without
+its result line, and so must a copy of the script alone.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "die_e_tpu")
+
+# run chip_smoke.py as __main__ with the forbidden packages unimportable
+_BLOCKED_RUN = (
+    "import runpy, sys\n"
+    "for m in {mods!r}: sys.modules[m] = None\n"
+    "sys.argv = {argv!r}\n"
+    "runpy.run_path({script!r}, run_name='__main__')\n"
+)
+
+
+def _run(argv, cwd=ROOT, blocked=True, script=None):
+    script = str(script or ROOT / "chip_smoke.py")
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH="")
+    code = (_BLOCKED_RUN.format(mods=FORBIDDEN, argv=[script, *argv], script=script)
+            if blocked else None)
+    cmd = [sys.executable, "-c", code] if blocked else [sys.executable, script, *argv]
+    return subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_cpu_rehearsal_runs_every_phase_without_jax():
+    p = _run(["--device", "cpu", "--games", "4", "--iterations", "4",
+              "--filters", "8", "--blocks", "1"])
+    assert p.returncode == 0, p.stdout + p.stderr
+    for phase in ("device:", "build:", "kernels:", "reference:", "self-play:", "done:"):
+        assert phase in p.stdout, phase
+    assert '"ok"' not in p.stdout  # no result line off the card
+
+
+def test_default_run_without_a_card_fails_without_result():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default run is valid here")
+    p = _run([])
+    assert p.returncode != 0
+    assert '"ok"' not in p.stdout
+
+
+def test_script_alone_fails(tmp_path):
+    """A directory holding chip_smoke.py and nothing else of the repo."""
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    p = _run(["--device", "cpu"], cwd=tmp_path, blocked=False,
+             script=tmp_path / "chip_smoke.py")
+    assert p.returncode != 0
+    assert '"ok"' not in p.stdout
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [ROOT / "chip_smoke.py", ROOT / "profile_port.py",
+                                       *(ROOT / "die_e_tpu_torch").rglob("*.py")]))
+def test_port_imports_nothing_of_jax(path):
+    for mod in _imported_modules(ROOT / path):
+        assert mod.split(".")[0] not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def test_port_config_matches_jax():
+    import dataclasses
+
+    from die_e_tpu.core import config as jcfg
+    from die_e_tpu_torch.core import config as tcfg
+
+    path = ROOT / "configs" / "bg_full.toml"
+    assert (dataclasses.asdict(tcfg.load_config(str(path)))
+            == dataclasses.asdict(jcfg.load_config(str(path))))
+    assert dataclasses.asdict(tcfg.Config()) == dataclasses.asdict(jcfg.Config())
+    assert tcfg._KEYMAP == jcfg._KEYMAP
+
+
+def test_port_config_rejects_unknown_keys(tmp_path):
+    from die_e_tpu_torch.core import config as tcfg
+
+    bad = tmp_path / "bad.toml"
+    bad.write_text("iterations = 3\nnot_a_key = 1\n")
+    with pytest.raises(KeyError, match="not_a_key"):
+        tcfg.load_config(str(bad))
