@@ -8,19 +8,31 @@ Phases, each reported on one flushed line with the elapsed seconds:
 2. build: the port's CUDA sources, one ``nvcc`` call each, with the
    ``-Xptxas -v`` register and shared-memory lines;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   bit for bit, at the main path's shapes ([1024, 101, 2048] bf16), at
-   B = 1000 with false mask rows, an idx at N-1 and idx out of range; then
+   bit for bit, at the self-play search's shape ([1024, 101, 2048] bf16),
+   at B = 1000 and at the gate arena's B = 100, both with false mask rows,
+   an idx at N-1 and idx out of range; then
    each kernel's time, the plain version's and, where one PyTorch call
    computes the same function, that call's, with CUDA events;
 4. reference: the port on the card against the port on the CPU on small
-   inputs (legal masks and a search exactly, the ResNet within a stated
-   tolerance), and a breakdown of one search iteration's parts at full
-   width;
-5. self-play: the main path, ``train/self_play.py::self_play`` at the full
-   width of ``configs/bg_full.toml`` (1024 games, 100 simulations, the
-   256x19 ResNet, A = 1352) for 2 rounds (the one cut), with both kernels'
-   launch counts, which must be above 0;
-6. the kernel table as one JSON line, then the result line
+   inputs (legal masks and a search exactly, the ResNet and one training
+   step, with TF32 off for that step, within stated tolerances), and a
+   breakdown of one search iteration's parts at full width;
+5. self-play: ``train/self_play.py::self_play`` at the full width of
+   ``configs/bg_full.toml`` (1024 games, 100 simulations, the 256x19
+   ResNet, A = 1352) for 2 rounds (the one cut), with both kernels' launch
+   counts, which must be above 0 and equal what the search's levels
+   predict;
+6. learn: the main path, the port's CLI ``learn`` on that config at full
+   width (1024 games, 100 simulations, 256x19, batches of 256, 4 epochs),
+   cut to 2 learn iterations of 1 self-play run of 2 rounds each and a
+   100-game gate arena of 2 rounds, into a fresh directory under
+   ``build/``; then ``learn --resume`` with a third iteration.  It checks
+   the gate's verdicts, finite losses, the artifacts, that the restored
+   ``latest_state`` gives the trained net's forward bit for bit, and each
+   kernel's launches on the self-play and the arena path; it prints the
+   wall time of each stage, the train step's time and TF32 share, and the
+   peak device memory;
+7. the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase makes the script exit non-zero without the result line;
@@ -48,7 +60,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BUDGET_S = 600.0      # the whole run, build included
 CONFIG = os.path.join(ROOT, "configs", "bg_full.toml")
 ROUNDS = 2            # the one cut: self-play rounds (of the config's round limit)
+# the learn phase's cuts of configs/bg_full.toml (widths stay as they are)
+LEARN_CUTS = {"learn_iterations": 2, "self_play_iterations": 1,
+              "simulate_round_limit": 2, "arena_num_games": 100,
+              "arena_gate_block": 100, "arena_round_limit": 2}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+TF32_FLOP_PER_S = 495e12   # H100 SXM dense TF32, NVIDIA data sheet
 T0 = time.perf_counter()
 
 
@@ -168,7 +185,11 @@ def phase_kernels(dev, b, n, length, seed) -> list:
     gen = torch.Generator(device=dev).manual_seed(seed)
     on_card = dev.type == "cuda"
     max_err = {"gather_rows": 0.0, "scatter_rows": 0.0}
-    cases = [(b, False), (b - 24 if b >= 32 else b + 3, True)]  # 1024 -> 1000
+    # the self-play search's batch; a batch with false mask rows (games
+    # whose root is terminal); the gate arena's dual search, whose done
+    # games give false mask rows
+    cases = [(b, False), (b - 24 if b >= 32 else b + 3, True),
+             (LEARN_CUTS["arena_gate_block"], True)]
     for bb, false_rows in cases:
         src, idx, rows, mask = _row_case(bb, n, length, dev, gen, false_rows)
         got = R.gather_rows(src, idx)
@@ -250,6 +271,104 @@ def _random_states(env_mod, b, plies, dev, seed):
     return states
 
 
+def _set_tf32(on: bool) -> None:
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+
+
+def _adam_first_step(p0, m, v, group) -> "torch.Tensor":
+    """The parameter after Adam's first step from its moments, in float64
+    (the reference for both devices' optimizer paths)."""
+    b1, b2 = group["betas"]
+    return (p0.double() - group["lr"] / (1 - b1) * m.double()
+            / (v.double().sqrt() / (1 - b2) ** 0.5 + group["eps"]))
+
+
+def _train_step_reference(dev, spec, obs, seed) -> None:
+    """One ``train_step`` on ``dev`` against the CPU, same weights and
+    batch, float32 with TF32 off on the card for this comparison only: the
+    loss, gradients, BatchNorm running statistics, Adam's moments and the
+    parameters after the step."""
+    import numpy as np
+    import torch
+
+    from die_e_tpu_torch.train.learner import create_train_state, train_step
+
+    rng = np.random.default_rng(seed)
+    b = obs.shape[0]
+    ps = rng.dirichlet(np.full(spec.num_actions, 0.05), b).astype(np.float32)
+    outcome = rng.choice([-1.0, 0.0, 1.0], b).astype(np.float32)
+    weight = np.ones(b, np.float32)
+    weight[-5:] = 0.0
+    batch = (obs.cpu(), *(torch.from_numpy(x) for x in (ps, outcome, weight)))
+    out = {}
+    try:
+        for d in {dev, torch.device("cpu")}:
+            st = create_train_state(spec, seed, device=d)
+            _set_tf32(False)  # after resolve_device, which turns TF32 on
+            p0 = {k: p.detach().cpu().clone() for k, p in st.net.named_parameters()}
+            _, m = train_step(st, *(x.to(d) for x in batch))
+            group = st.opt.param_groups[0]
+            out[d.type] = {
+                "loss": m["loss"].item(),
+                "grads": {k: p.grad.cpu() for k, p in st.net.named_parameters()},
+                "running stats": {k: v.cpu() for k, v in st.net.state_dict().items()
+                                  if k.endswith(("running_mean", "running_var"))},
+                "exp_avg": {k: st.opt.state[p]["exp_avg"].cpu()
+                            for k, p in st.net.named_parameters()},
+                "exp_avg_sq": {k: st.opt.state[p]["exp_avg_sq"].cpu()
+                               for k, p in st.net.named_parameters()},
+                "params": {k: p.detach().cpu() for k, p in st.net.named_parameters()},
+            }
+            # this device's optimizer applied Adam's update to its own moments
+            o = out[d.type]
+            o["adam update"] = max(float((o["params"][k].double() - _adam_first_step(
+                p0[k], o["exp_avg"][k], o["exp_avg_sq"][k], group)).abs().max())
+                for k in p0)
+    finally:
+        _set_tf32(dev.type == "cuda")
+    o_d, o_c = out[dev.type], out["cpu"]
+
+    def rel(key):  # relative to the largest value of the cpu's
+        scale = max(float(x.abs().max()) for x in o_c[key].values())
+        return max(float((o_d[key][k] - x).abs().max()) for k, x in o_c[key].items()) / scale
+
+    # params after one step: Adam's first update is lr * g / (|g| + eps)
+    # elementwise (coupled decay inside g), so a gradient that differs by
+    # |dg| moves the parameter apart by at most 2 lr |dg| / (|g| + eps);
+    # the ratio of the difference to that (plus 1e-6 for float32 rounding)
+    lr, wd, eps = group["lr"], group["weight_decay"], group["eps"]
+    param_ratio = max(float(((o_d["params"][k] - o_c["params"][k]).abs() / (
+        1e-6 + 2 * lr * (o_d["grads"][k] - g).abs()
+        / ((g + wd * p0[k]).abs() + eps))).max()) for k, g in o_c["grads"].items())
+    errs = {
+        "loss": abs(o_d["loss"] - o_c["loss"]) / max(1.0, abs(o_c["loss"])),
+        "grads": rel("grads"),
+        "running stats": max(float((o_d["running stats"][k] - v).abs().max())
+                             for k, v in o_c["running stats"].items()),
+        "exp_avg": rel("exp_avg"),
+        "exp_avg_sq": rel("exp_avg_sq"),
+        "adam update": max(o_d["adam update"], o_c["adam update"]),
+        "params": param_ratio,
+    }
+    # float32 on both sides, sums in other orders (cuDNN's algorithms);
+    # exp_avg_sq holds g^2, so twice the gradients' relative error
+    tol = {"loss": 1e-4, "grads": 1e-4, "running stats": 1e-4, "exp_avg": 1e-4,
+           "exp_avg_sq": 2e-4, "adam update": 1e-6, "params": 1.0}
+    for k, e in errs.items():
+        if not e <= tol[k]:
+            raise AssertionError(f"train step {k} differs by {e:.3e} > {tol[k]}")
+    say("reference", f"one train step ({spec.n_filters}x{spec.n_res_blocks}, batch {b}, "
+        f"TF32 off), {dev.type} against the cpu: "
+        + ", ".join(f"{k} err {e:.2e} <= {tol[k]}" for k, e in errs.items())
+        + " (loss relative; grads and moments relative to the cpu's largest; stats "
+        "absolute; adam update: each device's parameters against Adam's first step "
+        "from its own moments in float64, absolute; params: the parameters' difference "
+        "over 1e-6 + 2 lr |dg| / (|g| + eps), elementwise)")
+
+
 def phase_reference(dev, spec_full, games, iterations, seed) -> None:
     """The port on ``dev`` against the port on the CPU, on small inputs."""
     import torch
@@ -287,6 +406,7 @@ def phase_reference(dev, spec_full, games, iterations, seed) -> None:
         raise AssertionError(f"ResNet on the device differs from the cpu by {err} > {tol}")
     say("reference", "legal_mask (64 states) and a 16-simulation search (8 games) equal "
         f"the cpu's bit for bit; 32x2 ResNet max |err| {err:.2e} <= {tol} (TF32)")
+    _train_step_reference(dev, spec_small, obs, seed)
 
     if dev.type != "cuda":
         return
@@ -354,15 +474,263 @@ def phase_self_play(dev, cfg, spec, games, iterations, rounds, seed) -> dict:
     say("self-play", f"{t} rounds in {wall:.2f}s: {sims / wall:.0f} simulations/s, "
         f"mean descent depth {depth:.3f} levels, {int(valid.sum())} fragments, "
         f"launches gather={launches['gather_rows']} scatter={launches['scatter_rows']}")
-    if dev.type == "cuda":
-        for k, v in launches.items():
-            if v <= 0:
-                raise AssertionError(f"the main path launched {k} no time")
-        want = {"gather_rows": traj.levels,
-                "scatter_rows": traj.levels + t * (iterations + 1)}
-        if launches != want:
-            raise AssertionError(f"launch counts {launches} != expected {want}")
+    _check_launches(dev, "self-play", launches, traj.levels, t, iterations)
     return launches
+
+
+def _check_launches(dev, path, launches, levels, searches, iterations) -> None:
+    """On the card each kernel ran, and as often as the searches predict:
+    one gather per descent level; one scatter per level (the taken-action
+    mark) and per expansion (the root and one leaf per simulation)."""
+    if dev.type != "cuda":
+        return
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"the {path} path launched {k} no time")
+    want = {"gather_rows": levels, "scatter_rows": levels + searches * (iterations + 1)}
+    if launches != want:
+        raise AssertionError(f"{path} launch counts {launches} != expected {want}")
+
+
+class _Taps:
+    """Wrap functions of the port's modules for the learn phase: time each
+    call (synchronised on the card), and for the two search paths set the
+    kernels' launch counts to 0 just before the call, read them just after
+    and check them against the search's levels.  Restores everything on
+    exit."""
+
+    def __init__(self, dev, iterations):
+        self.dev, self.iterations = dev, iterations
+        self.seconds: dict = {}
+        self.launches = {"learn_self_play": {}, "learn_arena": {}}
+        self.steps = self.rows = 0
+        self.result = None
+        self._undo = []
+
+    def _sync(self):
+        if self.dev.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+
+    def _time(self, key, fn, *a, _sync=True, **kw):
+        """``_sync=False`` for host-only work on another thread, which a
+        device synchronise would make wait for the loop's device work."""
+        if _sync:
+            self._sync()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        if _sync:
+            self._sync()
+        self.seconds[key] = self.seconds.get(key, 0.0) + time.perf_counter() - t0
+        return out
+
+    def _search_path(self, key, fn, levels_rounds, *a, **kw):
+        from die_e_tpu_torch.ops import rows as R
+
+        R.reset_launches()
+        out = self._time(key, fn, *a, **kw)
+        got = dict(R.launches)
+        _check_launches(self.dev, key, got, *levels_rounds(out), self.iterations)
+        for k, v in got.items():
+            self.launches[key][k] = self.launches[key].get(k, 0) + v
+        return out
+
+    def _wrap(self, mod, name, wrapper):
+        real = getattr(mod, name)
+        setattr(mod, name, lambda *a, **kw: wrapper(real, *a, **kw))
+        self._undo.append((mod, name, real))
+
+    def __enter__(self):
+        from die_e_tpu_torch.train import checkpoint, gating
+        from die_e_tpu_torch.train import learn as learn_mod
+
+        def epoch(real, state, data, batch_size, *a, **kw):
+            self.steps += data.padded_rows // batch_size
+            self.rows += data.n
+            return self._time("train", real, state, data, batch_size, *a, **kw)
+
+        def learn(real, *a, **kw):
+            self.result = real(*a, **kw)
+            return self.result
+
+        self._wrap(learn_mod, "self_play", lambda real, *a, **kw: self._search_path(
+            "learn_self_play", real, lambda tr: (tr.levels, tr.obs.shape[0]), *a, **kw))
+        self._wrap(gating, "play", lambda real, *a, **kw: self._search_path(
+            "learn_arena", real, lambda r: (r.levels, r.rounds), *a, **kw))
+        self._wrap(learn_mod, "train_epoch_device", epoch)
+        self._wrap(learn_mod, "gate", lambda real, *a, **kw: self._time("gate", real, *a, **kw))
+        self._wrap(checkpoint, "host_state",
+                   lambda real, *a, **kw: self._time("checkpoint copy to host", real, *a, **kw))
+        self._wrap(checkpoint, "_write", lambda real, *a, **kw: self._time(
+            "checkpoint writes", real, *a, _sync=False, **kw))
+        self._wrap(learn_mod, "learn", learn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in reversed(self._undo):
+            setattr(mod, name, real)
+
+
+def _forward_flops(net) -> int:
+    """Multiply-adds x 2 of one sample's forward, from the layer shapes."""
+    import torch
+
+    h, w, _ = net.spec.obs_shape
+    flops = 0
+    for m in net.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            flops += 2 * m.in_channels * m.out_channels * m.kernel_size[0] * m.kernel_size[1] * h * w
+        elif isinstance(m, torch.nn.Linear):
+            flops += 2 * m.in_features * m.out_features
+    return flops
+
+
+def _learn_config(run_dir, games, iterations, learn_iterations) -> str:
+    """configs/bg_full.toml with the learn phase's cuts (and, in a CPU
+    rehearsal, its smaller game batch and simulation count)."""
+    cuts = dict(LEARN_CUTS, learn_iterations=learn_iterations,
+                num_self_play_batches=games, iterations=iterations)
+    lines = []
+    for line in open(CONFIG).read().splitlines():
+        key = line.split("=")[0].strip()
+        if key in cuts:
+            continue
+        lines.append(line)
+    lines += [f"{k} = {v}" for k, v in cuts.items()]
+    path = os.path.join(run_dir, f"learn_{learn_iterations}.toml")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def phase_learn(dev, spec, games, iterations, seed) -> dict:
+    """The port's CLI ``learn``, then ``learn --resume``; returns the
+    kernels' launches by path."""
+    import contextlib
+    import json as json_
+
+    import numpy as np
+    import torch
+
+    from die_e_tpu_torch.cli import main as cli
+    from die_e_tpu_torch.core.config import load_config
+    from die_e_tpu_torch.envs import backgammon as bg
+    from die_e_tpu_torch.nets.resnet import forward
+    from die_e_tpu_torch.train import checkpoint as ckpt
+    from die_e_tpu_torch.train.learner import create_train_state, train_step
+    from die_e_tpu_torch.train.replay import load_training_data
+
+    run_dir = os.path.join(ROOT, "build", f"learn-{os.getpid()}-{int(time.time())}")
+    os.makedirs(run_dir)
+    say("learn", f"configs/bg_full.toml at B={games} iterations={iterations} "
+        f"net={spec.n_filters}x{spec.n_res_blocks}, cut to "
+        + ", ".join(f"{k}={v}" for k, v in LEARN_CUTS.items()) + f"; in {run_dir}")
+    jsonl = os.path.join(run_dir, "metrics.jsonl")
+    argv = ["--device", dev.type, "--seed", str(seed), "-g", "backgammon",
+            "--metrics-jsonl", jsonl]
+    cwd = os.getcwd()
+    with contextlib.ExitStack() as stack:
+        if spec != bg.SPEC:  # a CPU rehearsal's smaller net
+            for name, value in (("SPEC", spec), ("ENV", dataclasses.replace(bg.ENV, spec=spec))):
+                stack.callback(setattr, bg, name, getattr(bg, name))
+                setattr(bg, name, value)
+        taps = stack.enter_context(_Taps(dev, iterations))
+        stack.callback(os.chdir, cwd)
+        os.chdir(run_dir)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if cli.main(argv + ["-c", _learn_config(run_dir, games, iterations, 2), "learn"]) != 0:
+            raise AssertionError("learn exited non-zero")
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+        trained = taps.result
+        first = dict(taps.seconds), taps.steps, taps.rows
+        mdir = os.path.join(run_dir, "models", "backgammon")
+
+        # the committed latest_state, restored on the device, is the trained net
+        restored = create_train_state(spec, seed + 1, device=dev)
+        ckpt.restore_state(os.path.join(mdir, "latest_state"), restored)
+        obs = torch.from_numpy(load_training_data(
+            os.path.join(run_dir, "data", "backgammon",
+                         os.listdir(os.path.join(run_dir, "data", "backgammon"))[0],
+                         "lrn-1", "sp-0")).states[:256]).to(dev)
+        for a, b in zip(forward(trained.net, obs), forward(restored.net, obs)):
+            if not torch.equal(a, b):
+                raise AssertionError("restored latest_state's forward differs from the trained net's")
+        if restored.step != trained.step:
+            raise AssertionError(f"restored step {restored.step} != trained {trained.step}")
+        # Adam's step counts stay on the host, its moments go to the device
+        for p in restored.net.parameters():
+            st = restored.opt.state[p]
+            if st["step"].device.type != "cpu" or st["exp_avg"].device != p.device:
+                raise AssertionError("restored Adam state on the wrong device: step on "
+                                     f"{st['step'].device}, exp_avg on {st['exp_avg'].device}")
+
+        t1 = time.perf_counter()
+        if cli.main(argv + ["-c", _learn_config(run_dir, games, iterations, 3),
+                            "learn", "--resume"]) != 0:
+            raise AssertionError("learn --resume exited non-zero")
+        resume_wall = time.perf_counter() - t1
+
+    events = [json_.loads(line) for line in open(jsonl)]
+    starts = [e for e in events if e["event"] == "run_start"]
+    gates = [e for e in events if e["event"] == "gate"]
+    epochs = [e for e in events if e["event"] == "train_epoch"]
+    if [e["start_iter"] for e in starts] != [0, 2] or starts[0]["run_id"] != starts[1]["run_id"]:
+        raise AssertionError(f"run starts {starts}")
+    if gates[0]["result"] != "no_best_promoted":
+        raise AssertionError(f"iteration 0's gate: {gates[0]}")
+    for g in gates[1:]:
+        if (g["result"], g["draws"], g["games"]) != ("best_kept", 100, 100):
+            raise AssertionError(f"a 2-round gate must keep best on 100 draws: {g}")
+    if len(gates) != 3 or len(epochs) != 3 * 4 or not all(
+            np.isfinite(e["loss"]) for e in epochs):
+        raise AssertionError(f"gates {len(gates)}, epochs {epochs}")
+    run_id = starts[0]["run_id"]
+    for rel in ["models/backgammon/" + m for m in
+                ("model_0", "model_1", "model_2", "best", "latest_state",
+                 "latest_meta.json")] + [
+            f"data/backgammon/run-{run_id}/lrn-{i}/sp-0/memory.npz" for i in range(3)]:
+        if not os.path.exists(os.path.join(run_dir, rel)):
+            raise AssertionError(f"missing {rel}")
+    meta = json_.load(open(os.path.join(mdir, "latest_meta.json")))
+    if meta != {"run_id": run_id, "next_learn_iter": 3}:
+        raise AssertionError(f"resume cursor {meta}")
+
+    secs, steps, rows = first
+    bs = load_config(CONFIG).alphazero.training_batch_size
+    losses = ", ".join(f"{e['loss']:.4f}" for e in epochs)
+    say("learn", f"2 iterations in {wall:.2f}s; resume to iteration 2 in {resume_wall:.2f}s; "
+        "gates: no_best_promoted, best_kept (100 draws), best_kept (100 draws); "
+        f"losses {losses}; latest_state restored on the device gives the trained "
+        "net's forward bit for bit, with Adam's moments on the device and its step "
+        "counts on the host")
+    say("learn", "first call's wall time by stage: " + ", ".join(
+        f"{k} {v:.3f}s" for k, v in secs.items())
+        + f"; {steps} train steps, {steps / secs['train']:.1f} steps/s, "
+        f"{steps * bs / secs['train']:.0f} samples/s incl. padding rows, "
+        f"{rows / secs['train']:.0f} real samples/s"
+        + (f"; peak device memory {peak / 2 ** 30:.3f} GiB" if peak is not None else ""))
+    for path, counts in taps.launches.items():
+        say("learn", f"{path}: launches over both calls " + ", ".join(
+            f"{k}={v}" for k, v in counts.items())
+            + (" (each call's counts equal what its search levels predict)"
+               if dev.type == "cuda" else ""))
+
+    if dev.type == "cuda":
+        st = create_train_state(spec, seed, device=dev)
+        data = load_training_data(os.path.join(
+            run_dir, "data", "backgammon", f"run-{run_id}", "lrn-0", "sp-0"))
+        batch = [torch.from_numpy(x[:bs]).to(dev) for x in (data.states, data.ps, data.outcomes)]
+        w = torch.ones(bs, device=dev)
+        ms = time_ms(lambda: train_step(st, *batch, w), 20, warmup=3)
+        flops = 3 * _forward_flops(st.net) * bs
+        say("learn", f"train step at batch {bs}: {ms:.3f} ms, {flops / 1e9:.1f} GFLOP "
+            f"(3x the forward's, from the shapes): {flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{100 * flops / (ms * 1e-3) / TF32_FLOP_PER_S:.1f}% of the 495 TFLOP/s TF32 peak")
+    return taps.launches
 
 
 def main(argv=None) -> int:
@@ -405,11 +773,17 @@ def main(argv=None) -> int:
     check_budget("reference")
     launches = phase_self_play(dev, cfg, spec, games, iterations, ROUNDS, args.seed)
     check_budget("self-play")
+    by_path = phase_learn(dev, spec, games, iterations, args.seed)
+    check_budget("learn")
     if dev.type != "cuda":
         say("done", "cpu rehearsal passed (no device numbers, no result line)")
         return 0
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        paths = {"self_play": launches[k["name"]],
+                 **{p: c[k["name"]] for p, c in by_path.items()}}
+        # the main path: the learn phase's self-play and arena
+        k["launches"] = by_path["learn_self_play"][k["name"]] + by_path["learn_arena"][k["name"]]
+        k["launches_by_path"] = paths
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                              "count": device["count"]}}), flush=True)

@@ -1,0 +1,195 @@
+"""The arena ("versus") engine: the port of ``die_e_tpu/arena/versus.py``.
+
+N games between two agents in one lockstep batch.  Player 1 always plays
+side -1; half the games open with a skipped turn, so each side opens half;
+games still live at the round limit are draws; the winrate is player 1's.
+
+Agents: ``random`` picks uniformly among the legal moves; ``model`` runs
+the batched PUCT search and samples from its temperature-adjusted visit
+distribution (a terminal root gives the noop).  When both agents are
+models, one search serves both sides each round: its ``eval_fn`` runs both
+nets and takes each game's row from the net of that game's side to move
+(:func:`dual_eval_fn`).  The search evaluates ``[B]`` rows aligned with
+its root batch (the roots, then one leaf per game), so the per-game
+selection holds at every evaluation.
+
+A :class:`Player`'s ``model`` is its net's inference function
+``obs -> (softmax policy, value)`` (the JAX package's eval function and
+variables in one).
+
+The match is a host round loop that stops when every game is done or at
+the round limit.  Not ported yet (ROADMAP Queue 1 item 12): the ``mcts``
+agent, which needs ``search/simple.py``, and ``record=True``, which needs
+``arena/records.py``; both raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from die_e_tpu_torch.envs.base import freeze_where
+from die_e_tpu_torch.search.alpha import alpha_search, sample_action
+
+NOT_PORTED = "not ported yet (ROADMAP.md Queue 1 item 12: search/simple.py, arena/records.py)"
+
+
+class Agent(str, enum.Enum):
+    RANDOM = "random"
+    MCTS = "mcts"
+    MODEL = "model"
+
+
+@dataclasses.dataclass
+class Player:
+    kind: Agent
+    model: Optional[Callable] = None  # obs -> (policy, value), for Agent.MODEL
+
+
+@dataclasses.dataclass
+class PlayResult:
+    """The tally; ``winrate`` is player 1's.  ``rounds`` and ``levels``
+    (descent levels summed over the match's searches) say how much search
+    ran."""
+
+    player1: Agent
+    player2: Agent
+    wins_p1: int
+    wins_p2: int
+    draws: int
+    n_games: int
+    winrate: float
+    rounds: int = 0
+    levels: int = 0
+
+    def __str__(self):
+        return (
+            f"Player 1: {self.player1.value}\nPlayer 2: {self.player2.value}\n"
+            f"Wins Player 1: {self.wins_p1}\nWins Player 2: {self.wins_p2}\n"
+            f"Draws: {self.draws}\nNumber of Games: {self.n_games}\n"
+            f"Winrate: {self.winrate * 100.0}%"
+        )
+
+
+def _random_actions(env, states, gen):
+    """Uniform over the legal moves (the noop is legal exactly when no
+    move is)."""
+    legal = env.legal_mask(states).to(torch.float32)
+    return torch.multinomial(legal, 1, generator=gen)[:, 0].to(torch.int32)
+
+
+def _model_actions(env, eval_fn, states, gen, iterations, c, dirichlet_alpha,
+                   dirichlet_epsilon, temperature, negamax=False):
+    """(actions [B], descent levels): a batched PUCT search and a
+    temperature sample; an all-zero visit row (terminal root) gives the
+    noop."""
+    res = alpha_search(
+        env, eval_fn, states, gen, iterations=iterations, c=c,
+        dirichlet_alpha=dirichlet_alpha, dirichlet_epsilon=dirichlet_epsilon,
+        negamax=negamax,
+    )
+    action = sample_action(gen, res.visit_probs, temperature)
+    no_probs = res.visit_probs.sum(-1) <= 0.0
+    return torch.where(no_probs, env.spec.noop_action, action), res.levels
+
+
+def dual_eval_fn(eval1, eval2, use1):
+    """An ``eval_fn`` that runs both nets on every row and takes row b from
+    ``eval1`` where ``use1[b]``, else from ``eval2``."""
+
+    def dual(obs):
+        p1, v1 = eval1(obs)
+        p2, v2 = eval2(obs)
+        return (torch.where(use1[:, None], p1, p2),
+                torch.where(use1[:, None], v1, v2))
+
+    return dual
+
+
+def _agent_actions(env, player: Player, states, gen, iterations, c,
+                   dirichlet_alpha, dirichlet_epsilon, temperature, negamax):
+    """One agent's (actions, descent levels) over the whole batch."""
+    if player.kind == Agent.RANDOM:
+        return _random_actions(env, states, gen), 0
+    if player.kind == Agent.MODEL:
+        return _model_actions(env, player.model, states, gen, iterations, c,
+                              dirichlet_alpha, dirichlet_epsilon, temperature,
+                              negamax)
+    if player.kind == Agent.MCTS:
+        raise NotImplementedError(f"the mcts agent is {NOT_PORTED}")
+    raise ValueError(f"cannot compute actions for agent {player.kind}")
+
+
+def _round_actions(env, player1: Player, player2: Player, states, gen,
+                   iterations, c, dirichlet_alpha, dirichlet_epsilon,
+                   temperature, negamax):
+    """(actions [B], descent levels) for one round, each game's action from
+    its side to move's agent (player 1 is side -1).  Model against model
+    runs one dual-net search; the same non-model kind on both sides runs
+    once."""
+    use1 = env.player(states) == -1
+    args = (iterations, c, dirichlet_alpha, dirichlet_epsilon, temperature, negamax)
+    if player1.kind == Agent.MODEL and player2.kind == Agent.MODEL:
+        dual = Player(Agent.MODEL, dual_eval_fn(player1.model, player2.model, use1))
+        return _agent_actions(env, dual, states, gen, *args)
+    if player1.kind == player2.kind:
+        return _agent_actions(env, player1, states, gen, *args)
+    a1, l1 = _agent_actions(env, player1, states, gen, *args)
+    a2, l2 = _agent_actions(env, player2, states, gen, *args)
+    return torch.where(use1, a1, a2), l1 + l2
+
+
+def _apply_round(env, states, done, action):
+    """Step the live games; done games take the noop and stay frozen."""
+    action = torch.where(done, env.spec.noop_action, action)
+    next_states = env.step(states, action)
+    states = freeze_where(done, states, next_states)
+    return states, done | env.done(states)
+
+
+def _init_match(env, seeds):
+    """Fresh games from ``seeds`` [B], the second half opening on a
+    skipped turn."""
+    states = env.init(seeds, device=seeds.device)
+    n = seeds.shape[0]
+    skip_first = torch.arange(n, device=seeds.device) >= n // 2
+    noop = torch.full((n,), env.spec.noop_action, dtype=torch.int32,
+                      device=seeds.device)
+    skipped = env.step(states, noop)
+    return freeze_where(~skip_first, states, skipped)
+
+
+def play(env, player1: Player, player2: Player, gen: torch.Generator, mcts_cfg,
+         temperature: float = 1.25, num_games: int = 400, round_limit: int = 400,
+         record: bool = False, metrics=None) -> PlayResult:
+    """Run the match on ``gen``'s device; player 1 is side -1."""
+    if record:
+        raise NotImplementedError(f"recording games is {NOT_PORTED}")
+    dev = gen.device
+    seeds = torch.randint(0, 2 ** 31 - 1, (num_games,), generator=gen, device=dev)
+    states = _init_match(env, seeds)
+    done = env.done(states)
+    rounds = levels = 0
+    while rounds < round_limit and not bool(done.all()):
+        action, n = _round_actions(
+            env, player1, player2, states, gen, mcts_cfg.iterations, mcts_cfg.c,
+            mcts_cfg.dirichlet_alpha, mcts_cfg.dirichlet_epsilon, temperature,
+            mcts_cfg.negamax)
+        states, done = _apply_round(env, states, done, action)
+        rounds += 1
+        levels += n
+    # games live at the round limit are draws
+    winner = torch.where(done, env.winner(states), 0).cpu().numpy()
+    if metrics is not None:
+        metrics.log("arena_match", rounds=rounds, games=num_games)
+    wins_p1 = int(np.sum(winner == -1))
+    wins_p2 = int(np.sum(winner == 1))
+    return PlayResult(
+        player1=player1.kind, player2=player2.kind, wins_p1=wins_p1,
+        wins_p2=wins_p2, draws=num_games - wins_p1 - wins_p2, n_games=num_games,
+        winrate=wins_p1 / num_games, rounds=rounds, levels=levels,
+    )

@@ -1,0 +1,163 @@
+"""Command-line interface of the port: the port of ``die_e_tpu/cli/main.py``.
+
+The same subcommands and flags: ``learn`` (``-m``, ``--resume``),
+``train`` (``-m -o -r -l -s``) and ``play`` (``-1``/``-2`` random or
+model, ``--model1-path``, ``--model2-path``, ``--num-games``), with the
+global ``-c``/``--config``, ``-g``/``--game``, ``--seed`` and
+``--metrics-jsonl``.  ``--device cuda|cpu`` (default ``cuda``) takes the
+place of ``--platform``.  Like the JAX package's CLI it writes
+``./data/{game}/...`` and ``./models/{game}/...`` under the working
+directory.
+
+Not ported yet, and refused with an error naming the ROADMAP item:
+``replay``, ``play -o``, the ``mcts`` agent (Queue 1 item 12:
+``search/simple.py``, ``arena/records.py``) and the mesh and
+multi-process flags (Queue 1 item 12: ``parallel/``).
+
+Usage:  python -m die_e_tpu_torch.cli.main -g backgammon learn
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1 item 12: {})"
+
+
+def _get_env(name: str):
+    if name == "backgammon":
+        from die_e_tpu_torch.envs import backgammon as g
+    else:
+        from die_e_tpu_torch.envs import tictactoe as g
+    return g
+
+
+def _agent(kind: str, model_path, env_mod, dev):
+    from die_e_tpu_torch.arena.versus import Agent, Player
+    from die_e_tpu_torch.nets.resnet import PolicyValueNet
+    from die_e_tpu_torch.train import checkpoint as ckpt
+    from die_e_tpu_torch.train.learner import net_eval_fn
+
+    kind = kind.lower()
+    if kind == "random":
+        return Player(Agent.RANDOM)
+    if kind == "mcts":
+        raise SystemExit("the mcts agent " + NOT_PORTED.format("search/simple.py"))
+    if kind == "model":
+        path = model_path or ckpt.best_model_path(env_mod.SPEC.name)
+        if not model_path and not path.exists():
+            raise SystemExit(f"model agent requested but no model at {path}; "
+                             "pass --model1-path/--model2-path")
+        net = ckpt.restore_variables(path, PolicyValueNet(env_mod.SPEC).to(dev))
+        return Player(Agent.MODEL, net_eval_fn(net))
+    raise SystemExit(f"unknown agent kind {kind!r} (random|model)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="die-e-tpu-torch",
+        description="AlphaZero for Backgammon (and TicTacToe) on PyTorch/CUDA",
+    )
+    p.add_argument("-c", "--config", default=None, help="TOML config path")
+    p.add_argument("-g", "--game", default="backgammon",
+                   choices=["backgammon", "tictactoe"])
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where to run (cuda needs a card; there is no fallback)")
+    for flag in ("--mesh-data", "--mesh-model", "--num-processes", "--process-id"):
+        p.add_argument(flag, type=int, default=None, help="not ported yet")
+    p.add_argument("--coordinator", default=None, help="not ported yet")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--metrics-jsonl", default=None,
+                   help="append structured metric events to this JSONL file")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    pl = sub.add_parser("learn", help="run the self-play learn loop")
+    pl.add_argument("-m", "--model-path", default=None)
+    pl.add_argument("--resume", action="store_true",
+                    help="resume from the latest full train state (incl. optimizer)")
+
+    pp = sub.add_parser("play", help="arena match between two agents")
+    pp.add_argument("-1", "--agent-one", required=True, help="random|model")
+    pp.add_argument("-2", "--agent-two", required=True, help="random|model")
+    pp.add_argument("--model1-path", default=None)
+    pp.add_argument("--model2-path", default=None)
+    pp.add_argument("-o", "--output-path", default=None, help="not ported yet")
+    pp.add_argument("--num-games", type=int, default=None)
+
+    pt = sub.add_parser("train", help="offline training from saved data")
+    pt.add_argument("-m", "--model-path", default=None)
+    pt.add_argument("-o", "--out-path", default=None)
+    pt.add_argument("-r", "--run-id", default=None)
+    pt.add_argument("-l", "--learn", dest="learn_idx", default=None)
+    pt.add_argument("-s", "--self-play", dest="sp_idx", default=None)
+
+    pr = sub.add_parser("replay", help="replay a recorded game (not ported yet)")
+    pr.add_argument("game_path")
+    pr.add_argument("--no-wait", action="store_true")
+    return p
+
+
+def _refuse_unported(args) -> None:
+    if any(getattr(args, f) is not None for f in
+           ("mesh_data", "mesh_model", "coordinator", "num_processes", "process_id")):
+        raise SystemExit("the mesh and multi-process flags " + NOT_PORTED.format("parallel/"))
+    if args.command == "replay":
+        raise SystemExit("replay " + NOT_PORTED.format("arena/records.py"))
+    if args.command == "play" and args.output_path is not None:
+        raise SystemExit("play -o " + NOT_PORTED.format("arena/records.py"))
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
+    import torch
+
+    from die_e_tpu_torch.core.config import load_config
+    from die_e_tpu_torch.core.device import resolve_device
+    from die_e_tpu_torch.core.metrics import Metrics
+
+    dev = resolve_device(args.device)
+    config = load_config(args.config)
+    env_mod = _get_env(args.game)
+    env = env_mod.ENV
+    metrics = Metrics(jsonl_path=args.metrics_jsonl)
+
+    if args.command == "learn":
+        from die_e_tpu_torch.train.learn import learn
+
+        learn(env, config, seed=args.seed, model_path=args.model_path,
+              metrics=metrics, resume=args.resume, device=dev)
+
+    elif args.command == "play":
+        from die_e_tpu_torch.arena.versus import play
+
+        p1 = _agent(args.agent_one, args.model1_path, env_mod, dev)
+        p2 = _agent(args.agent_two, args.model2_path, env_mod, dev)
+        result = play(
+            env, p1, p2, torch.Generator(device=dev).manual_seed(args.seed),
+            config.mcts, temperature=config.alphazero.temperature,
+            num_games=args.num_games or config.arena.num_games,
+            round_limit=config.arena.round_limit, metrics=metrics,
+        )
+        print(result)
+
+    elif args.command == "train":
+        from die_e_tpu_torch.train.learn import train_offline
+
+        # ./data/{game}[/run-{id}[/lrn-{i}[/sp-{j}]]]
+        data_path = f"./data/{env.spec.name}"
+        if args.run_id:
+            data_path += f"/run-{args.run_id}"
+            if args.learn_idx is not None:
+                data_path += f"/lrn-{args.learn_idx}"
+                if args.sp_idx is not None:
+                    data_path += f"/sp-{args.sp_idx}"
+        train_offline(env, config, data_path, seed=args.seed,
+                      model_path=args.model_path, out_path=args.out_path,
+                      metrics=metrics, device=dev)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,9 +7,12 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
 It prints, with the card's name and power limit:
 
-* each row kernel's device time per launch, from CUDA events around a CUDA
-  graph of 100 launches (no host launch cost), beside the time of the same
-  launches back to back from Python (what the search pays);
+* each row kernel's device time per launch, and its library call's (the
+  gather's ``src[ar, idx]``, the scatter's ``index_put_`` on the
+  all-unmasked case), from CUDA events around a CUDA graph of 100 launches
+  (no host launch cost), beside the time of the same launches back to back
+  from Python (what the search pays), in turns (kernel, library, library,
+  kernel);
 * the device ops (kernels, copies, fills) of one ResNet forward, one legal
   mask and one env step at B = 1024, counted by ``torch.profiler``;
 * one backgammon search at the width of ``configs/bg_full.toml`` (1024
@@ -17,7 +20,11 @@ It prints, with the card's name and power limit:
   the same search under ``torch.profiler`` tracing the device only, with
   that run's wall time, its device busy time and busy share, its device ops
   per simulation and those outside the forward, mask and step per descent
-  level, and the kernels that take the most device time.
+  level, and the kernels that take the most device time;
+* one training step of the 256x19 net at batch 256 (TF32 convolutions):
+  its time from CUDA events over back-to-back steps, then 5 steps under
+  ``torch.profiler`` tracing the device only, with their device busy
+  share, device ops per step and top kernels.
 """
 
 from __future__ import annotations
@@ -33,17 +40,24 @@ from die_e_tpu_torch.envs import backgammon as bg
 from die_e_tpu_torch.nets.resnet import forward, make_net
 from die_e_tpu_torch.ops import rows as R
 from die_e_tpu_torch.search.alpha import alpha_search
+from die_e_tpu_torch.train.learner import create_train_state, train_step
 
 
 def kernel_device_times(dev, b, n, length, reps=100):
-    """{name: (graph_us, python_us)} per launch at [b, n, length] bf16."""
+    """{name: [(graph_us, python_us), ...]} per launch at [b, n, length]
+    bf16, one pair per turn."""
     gen = torch.Generator(device=dev).manual_seed(0)
     src, idx, rows, mask = chip_smoke._row_case(b, n, length, dev, gen, False)
+    ar = torch.arange(b, device=dev)
+    idx_long = idx.long()
     calls = {
         "gather_rows": lambda: R.gather_rows(src, idx),
+        "src[ar, idx]": lambda: src[ar, idx],
         "scatter_rows": lambda: R.scatter_rows(src, idx, rows, mask),
+        # every row unmasked, every idx in range: the same store
+        "index_put_": lambda: src.index_put_((ar, idx_long), rows),
     }
-    out = {}
+    graphs = {}
     for name, fn in calls.items():
         fn()  # build before capture
         side = torch.cuda.Stream(device=dev)
@@ -52,8 +66,12 @@ def kernel_device_times(dev, b, n, length, reps=100):
         with torch.cuda.graph(graph, stream=side):
             for _ in range(reps):
                 fn()
-        graph_ms = chip_smoke.time_ms(graph.replay, 5, warmup=1) / reps
-        out[name] = (graph_ms * 1e3, chip_smoke.time_ms(fn, reps) * 1e3)
+        graphs[name] = graph
+    out = {name: [] for name in calls}
+    for pair in (("gather_rows", "src[ar, idx]"), ("scatter_rows", "index_put_")):
+        for name in pair + pair[::-1]:
+            graph_ms = chip_smoke.time_ms(graphs[name].replay, 5, warmup=1) / reps
+            out[name].append((graph_ms * 1e3, chip_smoke.time_ms(calls[name], reps) * 1e3))
     return out
 
 
@@ -77,6 +95,35 @@ def device_profile(fn):
 SEED = 0
 
 
+def train_step_profile(dev, batch=256, steps=5):
+    """A train step's time, then ``steps`` steps under the device profiler."""
+    import numpy as np
+
+    st = create_train_state(bg.SPEC, SEED, device=dev)
+    obs = bg.observe(chip_smoke._random_states(bg, batch, 12, dev, SEED))
+    rng = np.random.default_rng(SEED)
+    ps = torch.tensor(rng.dirichlet(np.full(bg.NUM_ACTIONS, 0.05), batch),
+                      dtype=torch.float32, device=dev)
+    outcome = torch.tensor(rng.choice([-1.0, 0.0, 1.0], batch), dtype=torch.float32,
+                           device=dev)
+    w = torch.ones(batch, device=dev)
+
+    def step():
+        train_step(st, obs, ps, outcome, w)
+
+    ms = chip_smoke.time_ms(step, 20, warmup=3)
+    wall, busy_us, n_ops, events = device_profile(lambda: [step() for _ in range(steps)])
+    share = busy_us / 1e6 / wall
+    print(f"train step: 256x19 at batch {batch}: {ms:.3f} ms a step back to back "
+          f"(CUDA events, 20 steps); under the profiler {wall * 1e3 / steps:.3f} ms a step, "
+          f"device busy {busy_us / 1e3 / steps:.3f} ms a step = {100 * share:.1f}%, "
+          f"{n_ops / steps:.0f} device ops a step", flush=True)
+    print("train step top device events by time (ms over %d steps, calls, name):" % steps,
+          flush=True)
+    for e in events[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} {e.count:7d}  {e.key[:110]}", flush=True)
+
+
 def main() -> int:
     dev = resolve_device("cuda:0")
     cfg = load_config(chip_smoke.CONFIG)
@@ -86,11 +133,10 @@ def main() -> int:
           flush=True)
 
     length = R.pad_actions(bg.NUM_ACTIONS)
-    for name, (graph_us, py_us) in kernel_device_times(
-            dev, games, iterations + 1, length).items():
-        print(f"{name}: {graph_us:.2f} us per launch in a CUDA graph, "
-              f"{py_us:.2f} us launched back to back from Python "
-              f"[{games}, {iterations + 1}, {length}] bf16", flush=True)
+    for name, turns in kernel_device_times(dev, games, iterations + 1, length).items():
+        print(f"{name} [{games}, {iterations + 1}, {length}] bf16, per launch: "
+              + "; ".join(f"{g:.2f} us in a CUDA graph, {p:.2f} us back to back from Python"
+                          for g, p in turns), flush=True)
 
     net = make_net(bg.SPEC, SEED, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -139,6 +185,7 @@ def main() -> int:
     print("top device events by time (ms, calls, name):", flush=True)
     for e in events[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} {e.count:7d}  {e.key[:110]}", flush=True)
+    train_step_profile(dev)
     return 0
 
 

@@ -8,6 +8,7 @@ its result line, and so must a copy of the script alone.
 """
 
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -42,9 +43,23 @@ def test_cpu_rehearsal_runs_every_phase_without_jax():
     p = _run(["--device", "cpu", "--games", "4", "--iterations", "4",
               "--filters", "8", "--blocks", "1"])
     assert p.returncode == 0, p.stdout + p.stderr
-    for phase in ("device:", "build:", "kernels:", "reference:", "self-play:", "done:"):
+    for phase in ("device:", "build:", "kernels:", "reference:", "self-play:", "learn:",
+                  "done:"):
         assert phase in p.stdout, phase
     assert '"ok"' not in p.stdout  # no result line off the card
+    # the learn phase: its checks passed, and it left its artifacts
+    assert "one train step (32x2" in p.stdout
+    assert "resume to iteration 2" in p.stdout
+    assert "bit for bit" in p.stdout.split("learn:", 1)[1]
+    run_dir = Path(p.stdout.split("; in ", 1)[1].split()[0])
+    mdir = run_dir / "models" / "backgammon"
+    for name in ("model_0", "model_1", "model_2", "best", "latest_state"):
+        assert (mdir / name).is_dir(), name
+    assert json.loads((mdir / "latest_meta.json").read_text())["next_learn_iter"] == 3
+    (run,) = (run_dir / "data" / "backgammon").iterdir()
+    for i in range(3):
+        assert (run / f"lrn-{i}" / "sp-0" / "memory.npz").exists()
+    shutil.rmtree(run_dir)
 
 
 def test_default_run_without_a_card_fails_without_result():
