@@ -9,14 +9,17 @@ Phases, each reported on one flushed line with the elapsed seconds:
    ``-Xptxas -v`` register and shared-memory lines;
 3. kernels: each kernel against its plain PyTorch version on the card,
    bit for bit, at the self-play search's shape ([1024, 101, 2048] bf16),
-   at B = 1000 and at the gate arena's B = 100, both with false mask rows,
-   an idx at N-1 and idx out of range; then
+   at B = 1000, at the gate arena's B = 100 and the mcts arena's B = 400,
+   all three with false mask rows, an idx at N-1 and idx out of range, and
+   at ``get_next_move``'s B = 1; then
    each kernel's time, the plain version's and, where one PyTorch call
    computes the same function, that call's, with CUDA events;
 4. reference: the port on the card against the port on the CPU on small
-   inputs (legal masks and a search exactly, the ResNet and one training
-   step, with TF32 off for that step, within stated tolerances), and a
-   breakdown of one search iteration's parts at full width;
+   inputs (legal masks, a PUCT search, a pure-rollout search without
+   playouts in both selection modes and a one-game ``get_next_move``
+   search exactly, the ResNet and one training step, with TF32 off for
+   that step, within stated tolerances), and a breakdown of one search
+   iteration's parts at full width;
 5. self-play: ``train/self_play.py::self_play`` at the full width of
    ``configs/bg_full.toml`` (1024 games, 100 simulations, the 256x19
    ResNet, A = 1352) for 2 rounds (the one cut), with both kernels' launch
@@ -32,7 +35,16 @@ Phases, each reported on one flushed line with the elapsed seconds:
    kernel's launches on the self-play and the arena path; it prints the
    wall time of each stage, the train step's time and TF32 share, and the
    peak device memory;
-7. the kernel table as one JSON line, then the result line
+7. mcts: the port's CLI ``play -1 mcts -2 random -o DIR`` on that config
+   at full width (400 games, 100 UCB1 iterations a move, c = 2, A = 1352,
+   tree capacity 101), cut to 2 arena rounds and playouts of at most 4
+   steps, into a fresh directory under ``build/``; then ``replay
+   --no-wait`` of one recorded game.  It checks the tally, the 400
+   records and their winners, the replay's turns and last board, and each
+   kernel's launches against what the searches predict; it prints the
+   wall time, seconds per move, iterations per second and peak device
+   memory;
+8. the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase makes the script exit non-zero without the result line;
@@ -64,6 +76,9 @@ ROUNDS = 2            # the one cut: self-play rounds (of the config's round lim
 LEARN_CUTS = {"learn_iterations": 2, "self_play_iterations": 1,
               "simulate_round_limit": 2, "arena_num_games": 100,
               "arena_gate_block": 100, "arena_round_limit": 2}
+# the mcts phase's cuts of configs/bg_full.toml: 2 arena rounds (of 300) and
+# playouts of at most 4 steps (of 300)
+MCTS_CUTS = {"arena_round_limit": 2, "simulate_round_limit": 4}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 TF32_FLOP_PER_S = 495e12   # H100 SXM dense TF32, NVIDIA data sheet
 T0 = time.perf_counter()
@@ -176,7 +191,7 @@ def _row_case(b, n, length, dev, gen, false_rows: bool):
     return src, idx, rows, mask
 
 
-def phase_kernels(dev, b, n, length, seed) -> list:
+def phase_kernels(dev, b, n, length, mcts_games, seed) -> list:
     """Each kernel against its plain version, bit for bit; then times."""
     import torch
 
@@ -186,10 +201,11 @@ def phase_kernels(dev, b, n, length, seed) -> list:
     on_card = dev.type == "cuda"
     max_err = {"gather_rows": 0.0, "scatter_rows": 0.0}
     # the self-play search's batch; a batch with false mask rows (games
-    # whose root is terminal); the gate arena's dual search, whose done
-    # games give false mask rows
+    # whose root is terminal); the gate arena's dual search and the mcts
+    # arena's pure-rollout search, whose done games give false mask rows;
+    # get_next_move's one game
     cases = [(b, False), (b - 24 if b >= 32 else b + 3, True),
-             (LEARN_CUTS["arena_gate_block"], True)]
+             (LEARN_CUTS["arena_gate_block"], True), (mcts_games, True), (1, False)]
     for bb, false_rows in cases:
         src, idx, rows, mask = _row_case(bb, n, length, dev, gen, false_rows)
         got = R.gather_rows(src, idx)
@@ -269,6 +285,109 @@ def _random_states(env_mod, b, plies, dev, seed):
         action = torch.multinomial(legal, 1, generator=gen)[:, 0]
         states = env_mod.step(states, action)
     return states
+
+
+def _assert_trees_equal(what, t_dev, t_cpu) -> None:
+    import torch
+
+    for f in dataclasses.fields(t_dev):
+        a, b_ = getattr(t_dev, f.name), getattr(t_cpu, f.name)
+        if isinstance(a, torch.Tensor) and not torch.equal(a.cpu(), b_):
+            raise AssertionError(f"{what} tree field {f.name} differs from the cpu's")
+
+
+def _simple_search_reference(dev, states, states_cpu, seed) -> None:
+    """The pure-rollout search without playouts (it then draws nothing) on
+    the device against the cpu: every tree field, and the action and visit
+    probabilities in both selection modes, bit for bit."""
+    import torch
+
+    from die_e_tpu_torch.envs import backgammon as bg
+    from die_e_tpu_torch.search import simple
+
+    iterations = 32
+    out = {}
+    for d, s in ((dev, states), (torch.device("cpu"), states_cpu)):
+        gen = torch.Generator(device=d).manual_seed(seed)
+        out[d.type] = simple.simple_search_tree(bg.ENV, s, gen, iterations, 2.0, 0)
+    (t_dev, levels), (t_cpu, _) = out[dev.type], out["cpu"]
+    _assert_trees_equal("simple search", t_dev, t_cpu)
+    for selection in simple.SELECTIONS:
+        a_dev, p_dev = simple.simple_search_select(bg.ENV, t_dev, selection)
+        a_cpu, p_cpu = simple.simple_search_select(bg.ENV, t_cpu, selection)
+        if not (torch.equal(a_dev.cpu(), a_cpu) and torch.equal(p_dev.cpu(), p_cpu)):
+            raise AssertionError(f"simple search {selection} action or probs differ")
+    say("reference", f"a {iterations}-iteration pure-rollout search ({states.board.shape[0]} "
+        f"games, no playout step, {levels} descent levels) equals the cpu's bit for bit: "
+        "every tree field, and action and visit probabilities for most_visits and win_pct")
+
+
+def _simple_search_playouts(dev, seed) -> None:
+    """The pure-rollout search with playouts on the device, on tic-tac-toe
+    positions with one forced move (16 games each): an immediate win for
+    x, and o's block of x's threat.  This holds what only a playout runs:
+    the legal draws, the freezing of finished games, the sign of a
+    playout's value against the root player and its backup through UCB1.
+    The draws are random, so a rare miss is allowed: at most 2 of the 32
+    games may choose another move."""
+    import torch
+
+    from die_e_tpu_torch.envs import tictactoe as ttt
+    from die_e_tpu_torch.search import simple
+
+    n = 16
+    boards = [[-1, -1, 0, 1, 1, 0, 0, 0, 0]] * n + [[-1, -1, 0, 1, 0, 0, 0, 0, 0]] * n
+    states = ttt.TttState(board=torch.tensor(boards, dtype=torch.int32, device=dev),
+                          player=torch.tensor([-1] * n + [1] * n, dtype=torch.int32,
+                                              device=dev))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    action, _ = simple.simple_search(ttt.ENV, states, gen, iterations=200, c=2.0,
+                                     simulate_round_limit=9)
+    action = action.cpu()
+    wins, blocks = int((action[:n] == 2).sum()), int((action[n:] == 2).sum())
+    if wins + blocks < 2 * n - 2:
+        raise AssertionError(f"the search with playouts took the forced move in {wins}/{n} "
+                             f"wins and {blocks}/{n} blocks")
+    say("reference", f"a 200-iteration pure-rollout search with 9-step playouts takes the "
+        f"immediate win in {wins}/{n} games and the block in {blocks}/{n}")
+
+
+def _next_move_reference(dev, states, states_cpu, seed) -> None:
+    """``get_next_move``'s one-game PUCT search (no Dirichlet noise, the
+    dyadic eval_fn) on the device against the cpu: the same visit
+    probabilities; each device's move lies in their support."""
+    import torch
+
+    from die_e_tpu_torch.envs import backgammon as bg
+    from die_e_tpu_torch.search import alpha
+
+    fn = _dyadic_eval(bg.NUM_ACTIONS)
+    kw = dict(iterations=32, c=2.0, dirichlet_epsilon=0.0, negamax=True)
+    found = {}
+    real = alpha.alpha_search
+
+    def spy(env, eval_fn, one, gen, **k):
+        found[one.board.device.type] = res = real(env, eval_fn, one, gen, **k)
+        return res
+
+    moves = []
+    alpha.alpha_search = spy
+    try:
+        for g in (0, 5):
+            for d, s in ((dev, states), (torch.device("cpu"), states_cpu)):
+                gen = torch.Generator(device=d).manual_seed(seed)
+                moves.append(alpha.get_next_move(bg.ENV, fn, s, gen, game=g, **kw))
+            p_dev, p_cpu = found[dev.type].visit_probs.cpu(), found["cpu"].visit_probs
+            if not torch.equal(p_dev, p_cpu):
+                raise AssertionError(f"get_next_move's visit probabilities differ (game {g})")
+            _assert_trees_equal("get_next_move", found[dev.type].tree, found["cpu"].tree)
+            if not all(p_cpu[0, m] > 0 for m in moves[-2:]):
+                raise AssertionError(f"get_next_move's moves {moves[-2:]} outside the support")
+    finally:
+        alpha.alpha_search = real
+    say("reference", "get_next_move (one game, 32 simulations, no noise, dyadic eval) on "
+        f"two games: visit probabilities and tree equal the cpu's, moves {moves} in the "
+        "support")
 
 
 def _set_tf32(on: bool) -> None:
@@ -389,10 +508,7 @@ def phase_reference(dev, spec_full, games, iterations, seed) -> None:
     kw = dict(iterations=16, c=2.0, dirichlet_epsilon=0.0, negamax=True)
     r_dev = alpha_search(bg.ENV, fn, small, torch.Generator(device=dev).manual_seed(1), **kw)
     r_cpu = alpha_search(bg.ENV, fn, small_cpu, torch.Generator().manual_seed(1), **kw)
-    for f in dataclasses.fields(r_dev.tree):
-        a, b_ = getattr(r_dev.tree, f.name), getattr(r_cpu.tree, f.name)
-        if isinstance(a, torch.Tensor) and not torch.equal(a.cpu(), b_):
-            raise AssertionError(f"search tree field {f.name} differs from the cpu's")
+    _assert_trees_equal("search", r_dev.tree, r_cpu.tree)
     if not torch.equal(r_dev.visit_probs.cpu(), r_cpu.visit_probs):
         raise AssertionError("search visit_probs differ from the cpu's")
     spec_small = dataclasses.replace(spec_full, n_filters=32, n_res_blocks=2)
@@ -406,6 +522,9 @@ def phase_reference(dev, spec_full, games, iterations, seed) -> None:
         raise AssertionError(f"ResNet on the device differs from the cpu by {err} > {tol}")
     say("reference", "legal_mask (64 states) and a 16-simulation search (8 games) equal "
         f"the cpu's bit for bit; 32x2 ResNet max |err| {err:.2e} <= {tol} (TF32)")
+    _simple_search_reference(dev, small, small_cpu, seed)
+    _simple_search_playouts(dev, seed)
+    _next_move_reference(dev, states, states_cpu, seed)
     _train_step_reference(dev, spec_small, obs, seed)
 
     if dev.type != "cuda":
@@ -474,20 +593,24 @@ def phase_self_play(dev, cfg, spec, games, iterations, rounds, seed) -> dict:
     say("self-play", f"{t} rounds in {wall:.2f}s: {sims / wall:.0f} simulations/s, "
         f"mean descent depth {depth:.3f} levels, {int(valid.sum())} fragments, "
         f"launches gather={launches['gather_rows']} scatter={launches['scatter_rows']}")
-    _check_launches(dev, "self-play", launches, traj.levels, t, iterations)
+    _check_launches(dev, "self-play", launches, _puct_launches(traj.levels, t, iterations))
     return launches
 
 
-def _check_launches(dev, path, launches, levels, searches, iterations) -> None:
-    """On the card each kernel ran, and as often as the searches predict:
-    one gather per descent level; one scatter per level (the taken-action
-    mark) and per expansion (the root and one leaf per simulation)."""
+def _puct_launches(levels, searches, iterations) -> dict:
+    """The PUCT search's launches: one gather per descent level; one
+    scatter per level (the taken-action mark) and per expansion (the root
+    and one leaf per simulation)."""
+    return {"gather_rows": levels, "scatter_rows": levels + searches * (iterations + 1)}
+
+
+def _check_launches(dev, path, launches, want) -> None:
+    """On the card each kernel ran, and as often as ``want`` predicts."""
     if dev.type != "cuda":
         return
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"the {path} path launched {k} no time")
-    want = {"gather_rows": levels, "scatter_rows": levels + searches * (iterations + 1)}
     if launches != want:
         raise AssertionError(f"{path} launch counts {launches} != expected {want}")
 
@@ -508,10 +631,7 @@ class _Taps:
         self._undo = []
 
     def _sync(self):
-        if self.dev.type == "cuda":
-            import torch
-
-            torch.cuda.synchronize()
+        _sync(self.dev)
 
     def _time(self, key, fn, *a, _sync=True, **kw):
         """``_sync=False`` for host-only work on another thread, which a
@@ -531,7 +651,7 @@ class _Taps:
         R.reset_launches()
         out = self._time(key, fn, *a, **kw)
         got = dict(R.launches)
-        _check_launches(self.dev, key, got, *levels_rounds(out), self.iterations)
+        _check_launches(self.dev, key, got, _puct_launches(*levels_rounds(out), self.iterations))
         for k, v in got.items():
             self.launches[key][k] = self.launches[key].get(k, 0) + v
         return out
@@ -591,6 +711,12 @@ def _learn_config(run_dir, games, iterations, learn_iterations) -> str:
     rehearsal, its smaller game batch and simulation count)."""
     cuts = dict(LEARN_CUTS, learn_iterations=learn_iterations,
                 num_self_play_batches=games, iterations=iterations)
+    return _config_copy(os.path.join(run_dir, f"learn_{learn_iterations}.toml"), cuts)
+
+
+def _config_copy(path, cuts) -> str:
+    """Write configs/bg_full.toml with the keys of ``cuts`` replaced to
+    ``path``."""
     lines = []
     for line in open(CONFIG).read().splitlines():
         key = line.split("=")[0].strip()
@@ -598,7 +724,6 @@ def _learn_config(run_dir, games, iterations, learn_iterations) -> str:
             continue
         lines.append(line)
     lines += [f"{k} = {v}" for k, v in cuts.items()]
-    path = os.path.join(run_dir, f"learn_{learn_iterations}.toml")
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     return path
@@ -733,6 +858,116 @@ def phase_learn(dev, spec, games, iterations, seed) -> dict:
     return taps.launches
 
 
+def phase_mcts(dev, games, iterations, seed, card) -> dict:
+    """The port's CLI ``play -1 mcts -2 random -o DIR``, then ``replay
+    --no-wait`` of one recorded game; returns the kernels' launches on the
+    match.  ``card`` is the card's name and power limit, printed beside
+    the times."""
+    import contextlib
+    import io
+
+    import torch
+
+    from die_e_tpu_torch.arena import records, versus
+    from die_e_tpu_torch.cli import main as cli
+    from die_e_tpu_torch.envs import backgammon as bg
+    from die_e_tpu_torch.ops import rows as R
+
+    run_dir = os.path.join(ROOT, "build", f"mcts-{os.getpid()}-{int(time.time())}")
+    games_dir = os.path.join(run_dir, "games")
+    os.makedirs(run_dir)
+    cfg = _config_copy(os.path.join(run_dir, "mcts.toml"), dict(MCTS_CUTS, iterations=iterations))
+    say("mcts", f"configs/bg_full.toml, mcts against random, {games} games, {iterations} "
+        f"UCB1 iterations a move (c = 2, tree capacity {iterations + 1}, A = {bg.NUM_ACTIONS}), "
+        "cut to " + ", ".join(f"{k}={v}" for k, v in MCTS_CUTS.items())
+        + f" (of 300 each); in {run_dir}")
+    argv = ["--device", dev.type, "--seed", str(seed), "-g", "backgammon", "-c", cfg]
+    taps = {}
+    real_play, real_replay = versus.play, records.replay_game
+
+    def play(*a, **kw):
+        R.reset_launches()
+        taps["result"] = real_play(*a, **kw)
+        _sync(dev)
+        taps["launches"] = dict(R.launches)
+        return taps["result"]
+
+    def replay(*a, **kw):
+        taps["final"] = real_replay(*a, **kw)
+        return taps["final"]
+
+    out = io.StringIO()
+    versus.play, records.replay_game = play, replay
+    try:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv + ["play", "-1", "mcts", "-2", "random",
+                                  "--num-games", str(games), "-o", games_dir])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+        print(out.getvalue(), end="", flush=True)
+        if rc != 0:
+            raise AssertionError("play exited non-zero")
+        recs = records.load_all_games(games_dir)
+        replay_out = io.StringIO()
+        with contextlib.redirect_stdout(replay_out):
+            rc = cli.main(argv + ["replay", os.path.join(games_dir, f"{recs[0].id}.json"),
+                                  "--no-wait"])
+        if rc != 0:
+            raise AssertionError("replay exited non-zero")
+    finally:
+        versus.play, records.replay_game = real_play, real_replay
+    res, launches = taps["result"], taps["launches"]
+
+    tally = {k: int(out.getvalue().split(f"{k}: ", 1)[1].split()[0])
+             for k in ("Wins Player 1", "Wins Player 2", "Draws", "Number of Games")}
+    if sum(tally[k] for k in ("Wins Player 1", "Wins Player 2", "Draws")) != games \
+            or tally["Number of Games"] != games:
+        raise AssertionError(f"the tally {tally} does not sum to {games}")
+    if f"saved {games} game records to {games_dir}" not in out.getvalue() or len(recs) != games:
+        raise AssertionError(f"{len(recs)} records written, not {games}")
+    winners = [r.winner for r in recs]
+    if (winners.count("mcts"), winners.count("random"), winners.count("none")) != (
+            tally["Wins Player 1"], tally["Wins Player 2"], tally["Draws"]):
+        raise AssertionError(f"the records' winners disagree with the tally {tally}")
+    if any(len(r.turns) != res.rounds for r in recs) or res.mcts_searches != res.rounds:
+        raise AssertionError(f"{res.rounds} rounds, {res.mcts_searches} searches, turns "
+                             f"{sorted({len(r.turns) for r in recs})}")
+    text = replay_out.getvalue()
+    n_turns = len(recs[0].turns)
+    if not text.startswith(f"Game ID: {recs[0].id}\n") or text.count(
+            "State after action has been played:") != n_turns:
+        raise AssertionError("the replay did not re-apply every recorded turn:\n" + text)
+    if not bool(bg.validate_state(taps["final"]).all()):
+        raise AssertionError("the replay's last board fails validate_state")
+    # one gather per iteration (the expansion's legal row); one scatter per
+    # iteration and per search (the new node's and the root's rows)
+    _check_launches(dev, "mcts_arena", launches,
+                    {"gather_rows": res.mcts_searches * iterations,
+                     "scatter_rows": res.mcts_searches * (iterations + 1)})
+    say("mcts", f"tally {tally['Wins Player 1']}/{tally['Wins Player 2']}/{tally['Draws']} "
+        f"(mcts/random/draws) of {games}, {len(recs)} records whose winners agree; replay of "
+        f"{recs[0].id} re-applied {n_turns} turns, last board valid")
+    moves = res.rounds
+    say("mcts", f"on {card}: {moves} moves in {wall:.2f}s: {wall / moves:.3f} s a move, "
+        f"{res.mcts_searches * iterations / wall:.2f} search iterations/s "
+        f"({games * res.mcts_searches * iterations / wall:.0f} game-iterations/s); "
+        f"launches gather={launches['gather_rows']} scatter={launches['scatter_rows']}"
+        + (" (equal what the searches predict)" if dev.type == "cuda" else "")
+        + (f"; peak device memory {peak / 2 ** 30:.3f} GiB" if peak is not None else ""))
+    return launches
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+
+
 def main(argv=None) -> int:
     args = parse_args(sys.argv[1:] if argv is None else argv)
     import torch
@@ -766,8 +1001,9 @@ def main(argv=None) -> int:
     check_budget("device")
     phase_build(dev)
     check_budget("build")
+    mcts_games = args.games or cfg.arena.num_games
     kernels = phase_kernels(dev, games, iterations + 1, pad_actions(spec.num_actions),
-                            args.seed)
+                            mcts_games, args.seed)
     check_budget("kernels")
     phase_reference(dev, spec, games, iterations, args.seed)
     check_budget("reference")
@@ -775,12 +1011,16 @@ def main(argv=None) -> int:
     check_budget("self-play")
     by_path = phase_learn(dev, spec, games, iterations, args.seed)
     check_budget("learn")
+    mcts_launches = phase_mcts(dev, mcts_games, iterations, args.seed,
+                               device.get("smi", "the cpu (rehearsal)"))
+    check_budget("mcts")
     if dev.type != "cuda":
         say("done", "cpu rehearsal passed (no device numbers, no result line)")
         return 0
     for k in kernels:
         paths = {"self_play": launches[k["name"]],
-                 **{p: c[k["name"]] for p, c in by_path.items()}}
+                 **{p: c[k["name"]] for p, c in by_path.items()},
+                 "mcts_arena": mcts_launches[k["name"]]}
         # the main path: the learn phase's self-play and arena
         k["launches"] = by_path["learn_self_play"][k["name"]] + by_path["learn_arena"][k["name"]]
         k["launches_by_path"] = paths

@@ -1,18 +1,17 @@
 """Command-line interface of the port: the port of ``die_e_tpu/cli/main.py``.
 
 The same subcommands and flags: ``learn`` (``-m``, ``--resume``),
-``train`` (``-m -o -r -l -s``) and ``play`` (``-1``/``-2`` random or
-model, ``--model1-path``, ``--model2-path``, ``--num-games``), with the
+``train`` (``-m -o -r -l -s``), ``play`` (``-1``/``-2`` random, mcts or
+model, ``--model1-path``, ``--model2-path``, ``-o`` for one JSON record
+per game, ``--num-games``) and ``replay GAME_PATH [--no-wait]``, with the
 global ``-c``/``--config``, ``-g``/``--game``, ``--seed`` and
 ``--metrics-jsonl``.  ``--device cuda|cpu`` (default ``cuda``) takes the
 place of ``--platform``.  Like the JAX package's CLI it writes
 ``./data/{game}/...`` and ``./models/{game}/...`` under the working
 directory.
 
-Not ported yet, and refused with an error naming the ROADMAP item:
-``replay``, ``play -o``, the ``mcts`` agent (Queue 1 item 12:
-``search/simple.py``, ``arena/records.py``) and the mesh and
-multi-process flags (Queue 1 item 12: ``parallel/``).
+Not ported yet, and refused with an error naming the ROADMAP item: the
+mesh and multi-process flags (Queue 1 item 3: ``parallel/``).
 
 Usage:  python -m die_e_tpu_torch.cli.main -g backgammon learn
 """
@@ -22,7 +21,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1 item 12: {})"
+NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1 item 3: {})"
 
 
 def _get_env(name: str):
@@ -40,10 +39,8 @@ def _agent(kind: str, model_path, env_mod, dev):
     from die_e_tpu_torch.train.learner import net_eval_fn
 
     kind = kind.lower()
-    if kind == "random":
-        return Player(Agent.RANDOM)
-    if kind == "mcts":
-        raise SystemExit("the mcts agent " + NOT_PORTED.format("search/simple.py"))
+    if kind in ("random", "mcts"):
+        return Player(Agent(kind))
     if kind == "model":
         path = model_path or ckpt.best_model_path(env_mod.SPEC.name)
         if not model_path and not path.exists():
@@ -51,7 +48,7 @@ def _agent(kind: str, model_path, env_mod, dev):
                              "pass --model1-path/--model2-path")
         net = ckpt.restore_variables(path, PolicyValueNet(env_mod.SPEC).to(dev))
         return Player(Agent.MODEL, net_eval_fn(net))
-    raise SystemExit(f"unknown agent kind {kind!r} (random|model)")
+    raise SystemExit(f"unknown agent kind {kind!r} (random|mcts|model)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -78,11 +75,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="resume from the latest full train state (incl. optimizer)")
 
     pp = sub.add_parser("play", help="arena match between two agents")
-    pp.add_argument("-1", "--agent-one", required=True, help="random|model")
-    pp.add_argument("-2", "--agent-two", required=True, help="random|model")
+    pp.add_argument("-1", "--agent-one", required=True, help="random|mcts|model")
+    pp.add_argument("-2", "--agent-two", required=True, help="random|mcts|model")
     pp.add_argument("--model1-path", default=None)
     pp.add_argument("--model2-path", default=None)
-    pp.add_argument("-o", "--output-path", default=None, help="not ported yet")
+    pp.add_argument("-o", "--output-path", default=None,
+                    help="directory for JSON game records")
     pp.add_argument("--num-games", type=int, default=None)
 
     pt = sub.add_parser("train", help="offline training from saved data")
@@ -92,7 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("-l", "--learn", dest="learn_idx", default=None)
     pt.add_argument("-s", "--self-play", dest="sp_idx", default=None)
 
-    pr = sub.add_parser("replay", help="replay a recorded game (not ported yet)")
+    pr = sub.add_parser("replay", help="replay a recorded game")
     pr.add_argument("game_path")
     pr.add_argument("--no-wait", action="store_true")
     return p
@@ -102,10 +100,6 @@ def _refuse_unported(args) -> None:
     if any(getattr(args, f) is not None for f in
            ("mesh_data", "mesh_model", "coordinator", "num_processes", "process_id")):
         raise SystemExit("the mesh and multi-process flags " + NOT_PORTED.format("parallel/"))
-    if args.command == "replay":
-        raise SystemExit("replay " + NOT_PORTED.format("arena/records.py"))
-    if args.command == "play" and args.output_path is not None:
-        raise SystemExit("play -o " + NOT_PORTED.format("arena/records.py"))
 
 
 def main(argv=None):
@@ -138,9 +132,16 @@ def main(argv=None):
             env, p1, p2, torch.Generator(device=dev).manual_seed(args.seed),
             config.mcts, temperature=config.alphazero.temperature,
             num_games=args.num_games or config.arena.num_games,
-            round_limit=config.arena.round_limit, metrics=metrics,
+            round_limit=config.arena.round_limit, record=args.output_path is not None,
+            metrics=metrics,
         )
         print(result)
+        if args.output_path:
+            from die_e_tpu_torch.arena.records import save_game
+
+            for rec in result.games:
+                save_game(rec, args.output_path)
+            print(f"saved {len(result.games)} game records to {args.output_path}")
 
     elif args.command == "train":
         from die_e_tpu_torch.train.learn import train_offline
@@ -156,6 +157,12 @@ def main(argv=None):
         train_offline(env, config, data_path, seed=args.seed,
                       model_path=args.model_path, out_path=args.out_path,
                       metrics=metrics, device=dev)
+
+    elif args.command == "replay":
+        from die_e_tpu_torch.arena.records import replay_game
+
+        replay_game(env, args.game_path, env_mod.pretty_str,
+                    wait_user_input=not args.no_wait, device=dev)
     return 0
 
 

@@ -638,3 +638,41 @@ ENV = Env(
     winner=winner,
     player=player_of,
 )
+
+
+def validate_state(state: BgState) -> torch.Tensor:
+    """[B] bool board invariant check: each side accounts for exactly 15
+    checkers across board, bar and off, counts are non-negative, the dice
+    are in range and the player is -1 or +1."""
+    board = state.board
+    neg = torch.where(board < 0, -board, 0).sum(-1)
+    pos = torch.where(board > 0, board, 0).sum(-1)
+    ok_m1 = neg + state.bar[:, 0] + state.off[:, 0] == 15
+    ok_p1 = pos + state.bar[:, 1] + state.off[:, 1] == 15
+    ok_counts = ((state.bar >= 0).all(-1) & (state.off >= 0).all(-1)
+                 & (board.abs() <= 15).all(-1))
+    ok_roll = ((state.roll >= 1) & (state.roll <= 6)).all(-1)
+    return ok_m1 & ok_p1 & ok_counts & ok_roll & (state.player.abs() == 1)
+
+
+def pretty_str(state: BgState, game: int = 0) -> str:
+    """Game ``game`` of a batched state as a terminal board, the same
+    string as the JAX package's ``pretty_str`` gives for that game."""
+    b, bar, off, roll = (t[game].cpu().numpy() for t in
+                         (state.board, state.bar, state.off, state.roll))
+    top = " ".join(f"{i:>3}" for i in range(12, 24))
+    bot = " ".join(f"{i:>3}" for i in range(11, -1, -1))
+    rows = [
+        top,
+        " ".join(f"{b[i]:>3}" for i in range(12, 24)),
+        "-" * len(top),
+        " ".join(f"{b[i]:>3}" for i in range(11, -1, -1)),
+        bot,
+    ]
+    player = "Player 1 (x, -1)" if int(state.player[game]) == -1 else "Player 2 (o, +1)"
+    info = (
+        f"Current turn: {player}  Roll: {tuple(roll)}"
+        f"  second_play={bool(state.second[game])}\n"
+        f"P1 bar={bar[0]} off={off[0]} | P2 bar={bar[1]} off={off[1]}"
+    )
+    return info + "\n" + "\n".join(rows)

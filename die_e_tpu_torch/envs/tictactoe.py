@@ -76,6 +76,10 @@ def winner(state: TttState) -> torch.Tensor:
     return torch.sign(w).to(torch.int32)
 
 
+def is_draw(state: TttState) -> torch.Tensor:
+    return (winner(state) == 0) & (state.board != 0).all(-1)
+
+
 def done(state: TttState) -> torch.Tensor:
     return (winner(state) != 0) | (state.board != 0).all(-1)
 
@@ -100,3 +104,11 @@ ENV = Env(
     player=player_of,
     done=done,
 )
+
+
+def pretty_str(state: TttState, game: int = 0) -> str:
+    """Game ``game`` of a batched state as three rows of x, o and ., the
+    same string as the JAX package's ``pretty_str`` gives for that game."""
+    sym = {0: ".", -1: "x", 1: "o"}
+    b = state.board[game].tolist()
+    return "\n".join("|".join(sym[v] for v in b[i * 3: i * 3 + 3]) for i in range(3))

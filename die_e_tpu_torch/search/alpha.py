@@ -26,7 +26,7 @@ from typing import Callable
 
 import torch
 
-from die_e_tpu_torch.envs.base import freeze_where
+from die_e_tpu_torch.envs.base import freeze_where, map_state
 from die_e_tpu_torch.ops.rows import scatter_rows
 from die_e_tpu_torch.search.tree import (
     Tree,
@@ -221,3 +221,20 @@ def sample_action(gen, visit_probs, temperature: float):
     last[:, -1] = 1.0
     p = torch.where(empty[:, None], last, p)
     return torch.multinomial(p, 1, generator=gen)[:, 0].to(torch.int32)
+
+
+def get_next_move(env, eval_fn: EvalFn, state, gen: torch.Generator, game: int = 0,
+                  iterations: int = 100, c: float = 2.0, dirichlet_alpha: float = 0.3,
+                  dirichlet_epsilon: float = 0.25, temperature: float = 1.25,
+                  negamax: bool = False) -> int:
+    """The next move for game ``game`` of a batched state (a one-game
+    batch by default), for debugging and interactive play: a one-game
+    PUCT search and a temperature sample, both drawing from ``gen``.
+    Returns a Python int; a terminal state gives the noop."""
+    one = map_state(lambda t: t[game:game + 1], state)
+    res = alpha_search(env, eval_fn, one, gen, iterations=iterations, c=c,
+                       dirichlet_alpha=dirichlet_alpha,
+                       dirichlet_epsilon=dirichlet_epsilon, negamax=negamax)
+    if res.visit_probs.sum() <= 0.0:
+        return env.spec.noop_action
+    return int(sample_action(gen, res.visit_probs, temperature)[0])

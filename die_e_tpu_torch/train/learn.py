@@ -20,7 +20,7 @@ Randomness: one ``torch.Generator`` on the device, seeded from ``seed``
 fresh run's draws), feeds self-play, the epoch permutations and the gate.
 
 The JAX package's multi-process and mesh branches are not ported
-(ROADMAP.md Queue 1 item 12, ``parallel/``).
+(ROADMAP.md Queue 1 item 3, ``parallel/``).
 """
 
 from __future__ import annotations

@@ -8,9 +8,13 @@ deterministic stand-in, as in ``tests/test_gate_sequential.py``.  The
 dual evaluation selects whole rows, so it is compared bit for bit against
 the single evaluations it selects from, and against JAX's within 1e-4
 (float32 convolutions summed in different orders, as in
-``tests/test_torch_resnet.py``).  Random agents and move sampling draw
-from generators the two frameworks do not share, so whole matches are
-checked for their invariants.
+``tests/test_torch_resnet.py``).  Random agents, pure-rollout playouts and
+move sampling draw from generators the two frameworks do not share, so
+whole matches are checked for their invariants and for what the mcts
+agent must do (beat random on tic-tac-toe).  ``get_next_move``'s search
+takes no random draw without Dirichlet noise, so its visit probabilities
+are compared with the JAX search's exactly, on a small flax net carried
+across with ``nets/convert.py``.
 """
 
 import dataclasses
@@ -27,6 +31,7 @@ from die_e_tpu.core.config import MctsConfig as JMctsConfig
 from die_e_tpu.envs import backgammon as jbg
 from die_e_tpu.envs import tictactoe as jttt
 from die_e_tpu.nets import resnet as jnet
+from die_e_tpu.search import alpha as jalpha
 from die_e_tpu.train import gating as jg
 from die_e_tpu.train.learner import net_eval_fn as j_net_eval_fn
 from die_e_tpu_torch.arena import versus as tv
@@ -35,6 +40,7 @@ from die_e_tpu_torch.envs import backgammon as tbg
 from die_e_tpu_torch.envs import tictactoe as tttt
 from die_e_tpu_torch.nets import resnet as tnet
 from die_e_tpu_torch.nets.convert import flax_to_state_dict
+from die_e_tpu_torch.search import alpha as talpha
 from die_e_tpu_torch.train import checkpoint as tckpt
 from die_e_tpu_torch.train import gating as tg
 from die_e_tpu_torch.train.learner import net_eval_fn
@@ -185,13 +191,91 @@ def test_random_match_counts_and_round_limit_draws():
     assert (res.draws, res.rounds, res.winrate) == (4, 2, 0.0)
 
 
-def test_unported_agents_and_records_raise():
-    p = tv.Player(tv.Agent.RANDOM)
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tv.play(tttt.ENV, tv.Player(tv.Agent.MCTS), p, gen, MctsConfig(), num_games=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tv.play(tttt.ENV, p, p, gen, MctsConfig(), num_games=2, record=True)
+MCTS_CFG = MctsConfig(iterations=8, simulate_round_limit=9)
+
+
+def test_mcts_beats_random():
+    res = tv.play(tttt.ENV, tv.Player(tv.Agent.MCTS), tv.Player(tv.Agent.RANDOM),
+                  torch.Generator().manual_seed(2), MCTS_CFG, num_games=16, round_limit=9)
+    assert res.wins_p1 + res.wins_p2 + res.draws == 16
+    assert res.wins_p1 > res.wins_p2
+    assert res.mcts_searches == res.rounds and res.levels == 0
+
+
+def test_half_the_games_open_on_a_skipped_turn_when_recorded():
+    """Player 1 (mcts, side -1) opens the first half, player 2 (random)
+    the second; each record's turns replay to its game's end."""
+    res = tv.play(tttt.ENV, tv.Player(tv.Agent.MCTS), tv.Player(tv.Agent.RANDOM),
+                  torch.Generator().manual_seed(1), MCTS_CFG, num_games=8, round_limit=9,
+                  record=True)
+    assert len(res.games) == 8
+    assert [g.turns[0].player for g in res.games] == ["mcts"] * 4 + ["random"] * 4
+    for g in res.games:
+        assert (g.game, g.player1, g.player2) == ("tictactoe", "mcts", "random")
+        assert all(t.roll is None for t in g.turns)
+        assert [t.player for t in g.turns[:2]] != [g.turns[0].player] * 2  # sides alternate
+    tally = [g.winner for g in res.games]
+    assert (tally.count("mcts"), tally.count("random"), tally.count("none")) == \
+        (res.wins_p1, res.wins_p2, res.draws)
+
+
+def test_mcts_settings_reach_the_search(monkeypatch):
+    """The config's iterations, c and playout cap reach the search; two
+    mcts agents share one search a round."""
+    seen = []
+    real = tv.simple_search
+
+    def spy(env, states, gen, **kw):
+        seen.append(kw)
+        return real(env, states, gen, **kw)
+
+    monkeypatch.setattr(tv, "simple_search", spy)
+    res = tv.play(tttt.ENV, tv.Player(tv.Agent.MCTS), tv.Player(tv.Agent.MCTS),
+                  torch.Generator().manual_seed(0), MCTS_CFG, num_games=4, round_limit=3)
+    assert len(seen) == res.mcts_searches == res.rounds == 3
+    assert seen[0] == dict(iterations=MCTS_CFG.iterations, c=MCTS_CFG.c,
+                           simulate_round_limit=MCTS_CFG.simulate_round_limit)
+
+
+@pytest.mark.parametrize("negamax", [False, True])
+def test_get_next_move_matches_jax_visit_probs(monkeypatch, negamax):
+    """A small flax net carried across: with no Dirichlet noise the one-game
+    search gives JAX's visit probabilities, and the move is in their
+    support; a finished game gives the noop."""
+    jn, [(v1, n1)] = _nets((7,))
+    js, ts = ttt_roots_one()
+    kw = dict(iterations=24, c=2.0, dirichlet_epsilon=0.0, negamax=negamax)
+    found = []
+    real = talpha.alpha_search
+
+    def spy(*a, **k):
+        found.append(real(*a, **k))
+        return found[-1]
+
+    monkeypatch.setattr(talpha, "alpha_search", spy)
+    for g in range(js.board.shape[0]):
+        jstate = jax.tree_util.tree_map(lambda x: x[g:g + 1], js)
+        jres = jalpha.alpha_search(jttt.ENV, j_net_eval_fn(jn), v1, jstate,
+                                   jax.random.PRNGKey(g), **kw)
+        move = talpha.get_next_move(tttt.ENV, net_eval_fn(n1), ts, torch.Generator().manual_seed(g),
+                                    game=g, temperature=1.25, **kw)
+        probs = found[-1].visit_probs[0]
+        np.testing.assert_array_equal(probs.numpy(), np.asarray(jres.visit_probs[0]))
+        if probs.sum() > 0:
+            assert probs[move] > 0
+        else:
+            assert move == tttt.NOOP_ACTION
+    assert move == tttt.NOOP_ACTION  # the last root is won
+
+
+def ttt_roots_one():
+    """Tic-tac-toe roots for one-game searches: empty, mid-game, a won game
+    last."""
+    boards = np.array([[0] * 9, [-1, 0, 0, 0, 1, 0, 0, 0, 0],
+                       [-1, -1, 0, 1, 1, 0, 0, 0, 0], [-1, -1, -1, 1, 1, 0, 0, 0, 0]], np.int32)
+    players = np.array([-1, -1, -1, 1], np.int32)
+    return (jttt.TttState(board=jnp.asarray(boards), player=jnp.asarray(players)),
+            tttt.TttState(board=torch.tensor(boards), player=torch.tensor(players)))
 
 
 @pytest.mark.parametrize("sequential", [False, True])

@@ -44,7 +44,7 @@ def test_cpu_rehearsal_runs_every_phase_without_jax():
               "--filters", "8", "--blocks", "1"])
     assert p.returncode == 0, p.stdout + p.stderr
     for phase in ("device:", "build:", "kernels:", "reference:", "self-play:", "learn:",
-                  "done:"):
+                  "mcts:", "done:"):
         assert phase in p.stdout, phase
     assert '"ok"' not in p.stdout  # no result line off the card
     # the learn phase: its checks passed, and it left its artifacts
@@ -60,6 +60,24 @@ def test_cpu_rehearsal_runs_every_phase_without_jax():
     for i in range(3):
         assert (run / f"lrn-{i}" / "sp-0" / "memory.npz").exists()
     shutil.rmtree(run_dir)
+    # the kernels at the mcts arena's and get_next_move's shapes; the pure-
+    # rollout and one-game searches against the cpu
+    assert "B=1 N=5 L=2048 bf16 mask_false=0: gather and scatter equal" in p.stdout
+    assert "pure-rollout search (8 games, no playout step" in p.stdout
+    assert "takes the immediate win in" in p.stdout  # the search with playouts
+    assert "get_next_move (one game" in p.stdout
+    # the mcts phase: the CLI's tally, its 4 records, and the replay of one
+    mcts = p.stdout.split("mcts: ", 1)[1]
+    assert "Number of Games: 4\n" in mcts and "4 records whose winners agree" in mcts
+    assert "re-applied 2 turns, last board valid" in mcts
+    mcts_dir = Path(mcts.split("; in ", 1)[1].split()[0])
+    records = sorted((mcts_dir / "games").glob("*.json"))
+    assert len(records) == 4
+    for path in records:
+        rec = json.loads(path.read_text())
+        assert (rec["game"], rec["player1"], rec["player2"]) == ("backgammon", "mcts", "random")
+        assert len(rec["turns"]) == 2
+    shutil.rmtree(mcts_dir)
 
 
 def test_default_run_without_a_card_fails_without_result():

@@ -226,17 +226,52 @@ def test_subcommands_and_flags():
 
 
 @pytest.mark.parametrize("argv", [
-    ["replay", "g.json"],
-    ["play", "-1", "random", "-2", "random", "-o", "out"],
-    ["play", "-1", "mcts", "-2", "random"],
     ["--mesh-data", "4", "learn"],
     ["--coordinator", "host:1234", "learn"],
     ["--num-processes", "2", "--process-id", "0", "learn"],
 ])
 def test_unported_commands_name_the_roadmap_item(argv, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 12"):
+    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 3: parallel/"):
         main(["--device", "cpu", "-g", "tictactoe", *argv])
+
+
+@pytest.mark.parametrize("argv", [
+    ["play", "-1", "mcts", "-2", "random", "--num-games", "4"],
+    ["play", "-1", "random", "-2", "random", "-o", "out", "--num-games", "4"],
+    ["replay", "GAME", "--no-wait"],
+])
+def test_play_mcts_records_and_replay_on_the_cpu(argv, tmp_path, monkeypatch, capsys):
+    """The commands the port once refused, run on tic-tac-toe: an mcts
+    match, a recorded match, and the replay of one recorded game."""
+    from die_e_tpu_torch.arena.records import load_all_games, load_game
+
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "cfg.toml").write_text(TINY_TOML)
+    base = ["--device", "cpu", "-c", "cfg.toml", "-g", "tictactoe"]
+    if argv[0] == "replay":
+        assert main(base + ["play", "-1", "mcts", "-2", "random", "-o", "games",
+                            "--num-games", "2"]) == 0
+        game = sorted((tmp_path / "games").iterdir())[0]
+        argv = ["replay", str(game), "--no-wait"]
+        capsys.readouterr()
+    assert main(base + argv) == 0
+    out = capsys.readouterr().out
+    if argv[0] == "play":
+        kinds = argv[2], argv[4]
+        assert f"Player 1: {kinds[0]}\nPlayer 2: {kinds[1]}\n" in out
+        assert "Number of Games: 4" in out
+    if "-o" in argv:
+        assert "saved 4 game records to out" in out
+        records = load_all_games(tmp_path / "out")
+        assert len(records) == 4 and all(len(r.turns) >= 5 for r in records)
+        draws = sum(r.winner == "none" for r in records)
+        assert f"Draws: {draws}\n" in out
+    if argv[0] == "replay":
+        rec = load_game(game)
+        assert out.startswith(f"Game ID: {rec.id}\nPlayer 1: mcts, Player 2: random\n")
+        assert out.count("State after action has been played:") == len(rec.turns)
+        assert out.count("Action: ") == len(rec.turns) >= 5
 
 
 TINY_TOML = """
