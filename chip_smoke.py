@@ -44,12 +44,37 @@ Phases, each reported on one flushed line with the elapsed seconds:
    kernel's launches against what the searches predict; it prints the
    wall time, seconds per move, iterations per second and peak device
    memory;
-8. the kernel table as one JSON line, then the result line
+8. compaction: tic-tac-toe self-play with live-game compaction (1024
+   games at tic-tac-toe's own width, 64x4, the config's 100 simulations,
+   round limit 9, so every game ends and the batch shrinks down the
+   ladder; min_batch 128), then the same without compaction for the wall
+   time; then the CLI's ``play -1 mcts -2 random --compact-arena -o`` on
+   1024 tic-tac-toe games (min_batch 64).  It checks that every game
+   ended, that each game's fragments are its moves at its own game id
+   with the winner the player of its last move, that the tallies add up,
+   that every record replays to its winner, and each kernel's launches
+   against what the searches predict; then both kernels bit for bit at
+   every batch they launched on; it prints the batches visited;
+9. learn2: the port's CLI ``learn`` as 2 processes on this one card
+   (gloo), joined by ``--coordinator/--num-processes/--process-id``, at
+   full width (1024 games, 512 a process, 100 simulations, 256x19,
+   batches of 256), cut to 1 iteration of 1 self-play run of 2 rounds, 1
+   epoch and the 100-game, 2-round gate on process 0, from the learn
+   phase's ``best``.  Before it, each process runs a 2-process train step
+   against one process's (32x2, batch 64, weight-0 rows in the second
+   half, TF32 off).  It checks identical losses and fragment counts on
+   both processes, that only process 0 gated and wrote, finite losses,
+   each kernel's launches at B = 512 on both processes, and both kernels
+   bit for bit at the shapes they launched on; it prints each process's
+   wall time by stage and the data-parallel step's time;
+10. the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase makes the script exit non-zero without the result line;
 so does a missing card and a run over the time budget.  Weights are random,
 made from ``--seed``; the script writes only into the ignored ``build/``.
+The card's machine has one card, so NCCL between cards is not exercised
+here.
 
 Usage (from the root of a checkout):
 
@@ -61,9 +86,11 @@ Usage (from the root of a checkout):
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -79,6 +106,11 @@ LEARN_CUTS = {"learn_iterations": 2, "self_play_iterations": 1,
 # the mcts phase's cuts of configs/bg_full.toml: 2 arena rounds (of 300) and
 # playouts of at most 4 steps (of 300)
 MCTS_CUTS = {"arena_round_limit": 2, "simulate_round_limit": 4}
+# the 2-process learn phase's cuts: one iteration of the learn phase's,
+# and 1 epoch (of 4): 64 data-parallel steps
+LEARN2_CUTS = {"learn_iterations": 1, "self_play_iterations": 1, "num_epochs": 1,
+               "simulate_round_limit": 2, "arena_num_games": 100,
+               "arena_gate_block": 100, "arena_round_limit": 2}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 TF32_FLOP_PER_S = 495e12   # H100 SXM dense TF32, NVIDIA data sheet
 T0 = time.perf_counter()
@@ -107,7 +139,21 @@ def parse_args(argv):
     p.add_argument("--iterations", type=int, default=None)
     p.add_argument("--filters", type=int, default=None)
     p.add_argument("--blocks", type=int, default=None)
+    # one process of the 2-process learn phase (the script starts these)
+    p.add_argument("--rank-worker", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--run-dir", default=None, help=argparse.SUPPRESS)
     return p.parse_args(argv)
+
+
+def _spec(args):
+    """Backgammon's spec, at a CPU rehearsal's smaller width if asked."""
+    from die_e_tpu_torch.envs import backgammon as bg
+
+    return dataclasses.replace(
+        bg.SPEC,
+        n_filters=args.filters or bg.SPEC.n_filters,
+        n_res_blocks=args.blocks if args.blocks is not None else bg.SPEC.n_res_blocks,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +237,26 @@ def _row_case(b, n, length, dev, gen, false_rows: bool):
     return src, idx, rows, mask
 
 
+def _row_check(dev, gen, b, n, length, false_rows, max_err) -> int:
+    """Both kernels against their plain versions, bit for bit, on one
+    ``_row_case``; raises on a difference, keeps the largest |err| by
+    kernel in ``max_err`` and returns the count of false mask rows."""
+    import torch
+
+    from die_e_tpu_torch.ops import rows as R
+
+    src, idx, rows, mask = _row_case(b, n, length, dev, gen, false_rows)
+    pairs = (("gather_rows", R.gather_rows(src, idx), R._gather_rows_plain(src, idx)),
+             ("scatter_rows", R.scatter_rows(src.clone(), idx, rows, mask),
+              R._scatter_rows_plain(src, idx, rows, mask)))
+    _sync(dev)
+    for name, x, y in pairs:
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name} differs from its plain version at [{b}, {n}, {length}]")
+        max_err[name] = max(max_err[name], (x.float() - y.float()).abs().max().item())
+    return int((~mask).sum())
+
+
 def phase_kernels(dev, b, n, length, mcts_games, seed) -> list:
     """Each kernel against its plain version, bit for bit; then times."""
     import torch
@@ -207,19 +273,8 @@ def phase_kernels(dev, b, n, length, mcts_games, seed) -> list:
     cases = [(b, False), (b - 24 if b >= 32 else b + 3, True),
              (LEARN_CUTS["arena_gate_block"], True), (mcts_games, True), (1, False)]
     for bb, false_rows in cases:
-        src, idx, rows, mask = _row_case(bb, n, length, dev, gen, false_rows)
-        got = R.gather_rows(src, idx)
-        want = R._gather_rows_plain(src, idx)
-        dst_k = R.scatter_rows(src.clone(), idx, rows, mask)
-        dst_p = R._scatter_rows_plain(src, idx, rows, mask)
-        if on_card:
-            torch.cuda.synchronize()
-        for name, x, y in (("gather_rows", got, want), ("scatter_rows", dst_k, dst_p)):
-            if not torch.equal(x, y):
-                raise AssertionError(f"{name} differs from its plain version at B={bb}")
-            err = (x.float() - y.float()).abs().max().item()
-            max_err[name] = max(max_err[name], err)
-        say("kernels", f"B={bb} N={n} L={length} bf16 mask_false={int((~mask).sum())}: "
+        n_false = _row_check(dev, gen, bb, n, length, false_rows, max_err)
+        say("kernels", f"B={bb} N={n} L={length} bf16 mask_false={n_false}: "
             "gather and scatter equal their plain versions bit for bit")
     if not on_card:
         return []
@@ -405,15 +460,11 @@ def _adam_first_step(p0, m, v, group) -> "torch.Tensor":
             / (v.double().sqrt() / (1 - b2) ** 0.5 + group["eps"]))
 
 
-def _train_step_reference(dev, spec, obs, seed) -> None:
-    """One ``train_step`` on ``dev`` against the CPU, same weights and
-    batch, float32 with TF32 off on the card for this comparison only: the
-    loss, gradients, BatchNorm running statistics, Adam's moments and the
-    parameters after the step."""
+def _step_batch(spec, obs, seed):
+    """(obs, ps, outcome, weight) on the CPU for one train step: Dirichlet
+    visit rows, outcomes in {-1, 0, 1}, the last 5 rows at weight 0."""
     import numpy as np
     import torch
-
-    from die_e_tpu_torch.train.learner import create_train_state, train_step
 
     rng = np.random.default_rng(seed)
     b = obs.shape[0]
@@ -421,48 +472,47 @@ def _train_step_reference(dev, spec, obs, seed) -> None:
     outcome = rng.choice([-1.0, 0.0, 1.0], b).astype(np.float32)
     weight = np.ones(b, np.float32)
     weight[-5:] = 0.0
-    batch = (obs.cpu(), *(torch.from_numpy(x) for x in (ps, outcome, weight)))
-    out = {}
-    try:
-        for d in {dev, torch.device("cpu")}:
-            st = create_train_state(spec, seed, device=d)
-            _set_tf32(False)  # after resolve_device, which turns TF32 on
-            p0 = {k: p.detach().cpu().clone() for k, p in st.net.named_parameters()}
-            _, m = train_step(st, *(x.to(d) for x in batch))
-            group = st.opt.param_groups[0]
-            out[d.type] = {
-                "loss": m["loss"].item(),
-                "grads": {k: p.grad.cpu() for k, p in st.net.named_parameters()},
-                "running stats": {k: v.cpu() for k, v in st.net.state_dict().items()
-                                  if k.endswith(("running_mean", "running_var"))},
-                "exp_avg": {k: st.opt.state[p]["exp_avg"].cpu()
-                            for k, p in st.net.named_parameters()},
-                "exp_avg_sq": {k: st.opt.state[p]["exp_avg_sq"].cpu()
-                               for k, p in st.net.named_parameters()},
-                "params": {k: p.detach().cpu() for k, p in st.net.named_parameters()},
-            }
-            # this device's optimizer applied Adam's update to its own moments
-            o = out[d.type]
-            o["adam update"] = max(float((o["params"][k].double() - _adam_first_step(
-                p0[k], o["exp_avg"][k], o["exp_avg_sq"][k], group)).abs().max())
-                for k in p0)
-    finally:
-        _set_tf32(dev.type == "cuda")
-    o_d, o_c = out[dev.type], out["cpu"]
+    return (obs.cpu(), *(torch.from_numpy(x) for x in (ps, outcome, weight)))
 
-    def rel(key):  # relative to the largest value of the cpu's
+
+def _step_outputs(st, loss, p0) -> dict:
+    """What one ``train_step`` left in ``st``, on the CPU, and how far each
+    parameter is from Adam's first step from its own moments (float64)."""
+    group = st.opt.param_groups[0]
+    o = {
+        "loss": float(loss),
+        "grads": {k: p.grad.cpu() for k, p in st.net.named_parameters()},
+        "running stats": {k: v.cpu() for k, v in st.net.state_dict().items()
+                          if k.endswith(("running_mean", "running_var"))},
+        "exp_avg": {k: st.opt.state[p]["exp_avg"].cpu() for k, p in st.net.named_parameters()},
+        "exp_avg_sq": {k: st.opt.state[p]["exp_avg_sq"].cpu()
+                       for k, p in st.net.named_parameters()},
+        "params": {k: p.detach().cpu() for k, p in st.net.named_parameters()},
+    }
+    o["adam update"] = max(float((o["params"][k].double() - _adam_first_step(
+        p0[k], o["exp_avg"][k], o["exp_avg_sq"][k], group)).abs().max()) for k in p0)
+    return o
+
+
+def _step_errors(o_d, o_c, p0, group) -> dict:
+    """How far one step's outputs ``o_d`` are from the reference's ``o_c``:
+    the loss relative, gradients and moments relative to the reference's
+    largest value, running statistics absolute, Adam's update absolute
+    (the larger of the two), and the parameters' difference over what the
+    gradients' difference allows: Adam's first update is lr * g / (|g| +
+    eps) elementwise (coupled decay inside g), so gradients that differ by
+    |dg| move a parameter apart by at most 2 lr |dg| / (|g| + eps), plus
+    1e-6 for float32 rounding."""
+
+    def rel(key):  # relative to the largest value of the reference's
         scale = max(float(x.abs().max()) for x in o_c[key].values())
         return max(float((o_d[key][k] - x).abs().max()) for k, x in o_c[key].items()) / scale
 
-    # params after one step: Adam's first update is lr * g / (|g| + eps)
-    # elementwise (coupled decay inside g), so a gradient that differs by
-    # |dg| moves the parameter apart by at most 2 lr |dg| / (|g| + eps);
-    # the ratio of the difference to that (plus 1e-6 for float32 rounding)
     lr, wd, eps = group["lr"], group["weight_decay"], group["eps"]
     param_ratio = max(float(((o_d["params"][k] - o_c["params"][k]).abs() / (
         1e-6 + 2 * lr * (o_d["grads"][k] - g).abs()
         / ((g + wd * p0[k]).abs() + eps))).max()) for k, g in o_c["grads"].items())
-    errs = {
+    return {
         "loss": abs(o_d["loss"] - o_c["loss"]) / max(1.0, abs(o_c["loss"])),
         "grads": rel("grads"),
         "running stats": max(float((o_d["running stats"][k] - v).abs().max())
@@ -472,20 +522,50 @@ def _train_step_reference(dev, spec, obs, seed) -> None:
         "adam update": max(o_d["adam update"], o_c["adam update"]),
         "params": param_ratio,
     }
+
+
+def _check_errors(what, errs, tol) -> str:
+    for k, e in errs.items():
+        if not e <= tol[k]:
+            raise AssertionError(f"{what}: {k} differs by {e:.3e} > {tol[k]}")
+    return ", ".join(f"{k} err {e:.2e} <= {tol[k]}" for k, e in errs.items())
+
+
+STEP_ERRORS_DOC = ("(loss relative; grads and moments relative to the reference's largest; "
+                   "stats absolute; adam update: each side's parameters against Adam's first "
+                   "step from its own moments in float64, absolute; params: the parameters' "
+                   "difference over 1e-6 + 2 lr |dg| / (|g| + eps), elementwise)")
+
+
+def _train_step_reference(dev, spec, obs, seed) -> None:
+    """One ``train_step`` on ``dev`` against the CPU, same weights and
+    batch, float32 with TF32 off on the card for this comparison only: the
+    loss, gradients, BatchNorm running statistics, Adam's moments and the
+    parameters after the step."""
+    import torch
+
+    from die_e_tpu_torch.train.learner import create_train_state, train_step
+
+    batch = _step_batch(spec, obs, seed)
+    out = {}
+    try:
+        for d in {dev, torch.device("cpu")}:
+            st = create_train_state(spec, seed, device=d)
+            _set_tf32(False)  # after resolve_device, which turns TF32 on
+            p0 = {k: p.detach().cpu().clone() for k, p in st.net.named_parameters()}
+            _, m = train_step(st, *(x.to(d) for x in batch))
+            out[d.type] = _step_outputs(st, m["loss"].item(), p0)
+            group = st.opt.param_groups[0]
+    finally:
+        _set_tf32(dev.type == "cuda")
+    errs = _step_errors(out[dev.type], out["cpu"], p0, group)
     # float32 on both sides, sums in other orders (cuDNN's algorithms);
     # exp_avg_sq holds g^2, so twice the gradients' relative error
     tol = {"loss": 1e-4, "grads": 1e-4, "running stats": 1e-4, "exp_avg": 1e-4,
            "exp_avg_sq": 2e-4, "adam update": 1e-6, "params": 1.0}
-    for k, e in errs.items():
-        if not e <= tol[k]:
-            raise AssertionError(f"train step {k} differs by {e:.3e} > {tol[k]}")
-    say("reference", f"one train step ({spec.n_filters}x{spec.n_res_blocks}, batch {b}, "
-        f"TF32 off), {dev.type} against the cpu: "
-        + ", ".join(f"{k} err {e:.2e} <= {tol[k]}" for k, e in errs.items())
-        + " (loss relative; grads and moments relative to the cpu's largest; stats "
-        "absolute; adam update: each device's parameters against Adam's first step "
-        "from its own moments in float64, absolute; params: the parameters' difference "
-        "over 1e-6 + 2 lr |dg| / (|g| + eps), elementwise)")
+    line = _check_errors("train step against the cpu", errs, tol)
+    say("reference", f"one train step ({spec.n_filters}x{spec.n_res_blocks}, batch "
+        f"{obs.shape[0]}, TF32 off), {dev.type} against the cpu: {line} {STEP_ERRORS_DOC}")
 
 
 def phase_reference(dev, spec_full, games, iterations, seed) -> None:
@@ -626,6 +706,8 @@ class _Taps:
         self.dev, self.iterations = dev, iterations
         self.seconds: dict = {}
         self.launches = {"learn_self_play": {}, "learn_arena": {}}
+        self.shapes = {"learn_self_play": collections.Counter(),
+                       "learn_arena": collections.Counter()}
         self.steps = self.rows = 0
         self.result = None
         self._undo = []
@@ -654,6 +736,7 @@ class _Taps:
         _check_launches(self.dev, key, got, _puct_launches(*levels_rounds(out), self.iterations))
         for k, v in got.items():
             self.launches[key][k] = self.launches[key].get(k, 0) + v
+        self.shapes[key].update(R.launch_shapes)
         return out
 
     def _wrap(self, mod, name, wrapper):
@@ -674,7 +757,7 @@ class _Taps:
             self.result = real(*a, **kw)
             return self.result
 
-        self._wrap(learn_mod, "self_play", lambda real, *a, **kw: self._search_path(
+        self._wrap(learn_mod, "self_play_from_states", lambda real, *a, **kw: self._search_path(
             "learn_self_play", real, lambda tr: (tr.levels, tr.obs.shape[0]), *a, **kw))
         self._wrap(gating, "play", lambda real, *a, **kw: self._search_path(
             "learn_arena", real, lambda r: (r.levels, r.rounds), *a, **kw))
@@ -729,9 +812,10 @@ def _config_copy(path, cuts) -> str:
     return path
 
 
-def phase_learn(dev, spec, games, iterations, seed) -> dict:
+def phase_learn(dev, spec, games, iterations, seed):
     """The port's CLI ``learn``, then ``learn --resume``; returns the
-    kernels' launches by path."""
+    kernels' launches by path, their launch shapes and the run's
+    directory."""
     import contextlib
     import json as json_
 
@@ -855,7 +939,7 @@ def phase_learn(dev, spec, games, iterations, seed) -> dict:
         say("learn", f"train step at batch {bs}: {ms:.3f} ms, {flops / 1e9:.1f} GFLOP "
             f"(3x the forward's, from the shapes): {flops / ms / 1e9:.1f} TFLOP/s, "
             f"{100 * flops / (ms * 1e-3) / TF32_FLOP_PER_S:.1f}% of the 495 TFLOP/s TF32 peak")
-    return taps.launches
+    return taps.launches, taps.shapes, run_dir
 
 
 def phase_mcts(dev, games, iterations, seed, card) -> dict:
@@ -961,6 +1045,419 @@ def phase_mcts(dev, games, iterations, seed, card) -> dict:
     return launches
 
 
+def _check_kernels_at(dev, shapes, seed, phase) -> dict:
+    """Each kernel against its plain version, bit for bit, at every store
+    shape ``(B, N, L)`` of ``shapes`` (a path's launches), with false mask
+    rows and out-of-range idx; returns the largest |err| by kernel."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    max_err = {"gather_rows": 0.0, "scatter_rows": 0.0}
+    for b, n, length in sorted({k[1:] for k in shapes}, reverse=True):
+        _row_check(dev, gen, b, n, length, b >= 3, max_err)
+    if shapes:
+        say(phase, "gather and scatter equal their plain versions bit for bit at B = "
+            + ", ".join(str(b) for b in sorted({k[1] for k in shapes}, reverse=True))
+            + f" ([B, {n}, {length}], false mask rows where B >= 3)")
+    return max_err
+
+
+def _batches(counter) -> str:
+    return ", ".join(f"{b} x{c}" for b, c in sorted(counter.items(), reverse=True))
+
+
+def _check_ttt_trajectory(traj, games) -> dict:
+    """A tic-tac-toe self-play record from empty boards: every game ended
+    (a winner, or a full board); each game's fragments are its moves, one
+    a round from round 0, at its own index (one more piece on the board
+    each); the winner is the player of the game's last move; every
+    fragment's outcome is the winner from its player's side.  Returns the
+    tally."""
+    import numpy as np
+
+    valid = traj.valid.cpu().numpy()
+    player = traj.player.cpu().numpy()
+    winner = traj.winner.cpu().numpy()
+    outcome = traj.outcome.cpu().numpy()
+    empty = traj.obs[..., 1].sum((-1, -2)).cpu().numpy()
+    n = valid.sum(0)
+    if winner.shape != (games,):
+        raise AssertionError(f"winner shape {winner.shape}")
+    for g in range(games):
+        k = int(n[g])
+        if not valid[:k, g].all() or valid[k:, g].any():
+            raise AssertionError(f"game {g}: fragments not one a round from round 0")
+        if not np.array_equal(empty[:k, g], 9 - np.arange(k)):
+            raise AssertionError(f"game {g}: a fragment off its game or its round")
+        if (winner[g] == 0 and k != 9) or (winner[g] != 0 and player[k - 1, g] != winner[g]):
+            raise AssertionError(f"game {g}: winner {winner[g]} after {k} moves, last "
+                                 f"mover {player[k - 1, g]}")
+        if not np.array_equal(outcome[:k, g], winner[g] * player[:k, g]):
+            raise AssertionError(f"game {g}: outcomes are not the winner from each side")
+    tally = {w: int((winner == w).sum()) for w in (-1, 1, 0)}
+    if sum(tally.values()) != games:
+        raise AssertionError(f"tally {tally}")
+    return tally
+
+
+def phase_compaction(dev, cfg, games, iterations, seed, card):
+    """Tic-tac-toe self-play with live-game compaction (and without, for
+    the wall time), then the CLI's ``play -1 mcts -2 random
+    --compact-arena -o``; returns the kernels' launches by path and their
+    launch shapes."""
+    import contextlib
+    import io
+
+    import torch
+
+    from die_e_tpu_torch.arena import records, versus
+    from die_e_tpu_torch.cli import main as cli
+    from die_e_tpu_torch.envs import tictactoe as ttt
+    from die_e_tpu_torch.envs.base import batch_size
+    from die_e_tpu_torch.nets.resnet import make_net
+    from die_e_tpu_torch.ops import rows as R
+    from die_e_tpu_torch.train import self_play as sp
+    from die_e_tpu_torch.train.learner import net_eval_fn
+
+    m = cfg.mcts
+    net = make_net(ttt.SPEC, seed, dev)
+    sp_min, arena_min = _min_batches(games)
+    say("compaction", f"tic-tac-toe self-play, {games} games, {iterations} simulations, "
+        f"net {ttt.SPEC.n_filters}x{ttt.SPEC.n_res_blocks}, A = {ttt.NUM_ACTIONS}, round "
+        f"limit 9 (every game ends), min_batch {sp_min}; with compaction, then without")
+    launches, shapes, walls = {}, {}, {}
+    for compact in (True, False):
+        key = "compaction_self_play" if compact else "self_play_uncompacted"
+        seen = collections.Counter()
+        real = sp.alpha_search
+
+        def search(env, eval_fn, states, *a, **kw):
+            seen[batch_size(states)] += 1
+            return real(env, eval_fn, states, *a, **kw)
+
+        sp.alpha_search = search
+        try:
+            _sync(dev)
+            R.reset_launches()
+            t0 = time.perf_counter()
+            traj = sp.self_play(
+                ttt.ENV, net_eval_fn(net), torch.Generator(device=dev).manual_seed(seed),
+                batch_size=games, iterations=iterations, c=m.c,
+                dirichlet_alpha=m.dirichlet_alpha, dirichlet_epsilon=m.dirichlet_epsilon,
+                temperature=cfg.alphazero.temperature, round_limit=9, negamax=m.negamax,
+                device=dev, compact=compact, min_batch=sp_min)
+            _sync(dev)
+            walls[key] = time.perf_counter() - t0
+        finally:
+            sp.alpha_search = real
+        launches[key], shapes[key] = dict(R.launches), collections.Counter(R.launch_shapes)
+        tally = _check_ttt_trajectory(traj, games)
+        rounds = traj.obs.shape[0]
+        _check_launches(dev, key, launches[key], _puct_launches(traj.levels, rounds, iterations))
+        if compact and len(seen) < 2:
+            raise AssertionError(f"compaction never fired: batches {dict(seen)}")
+        say("compaction", f"{'with' if compact else 'without'} compaction on {card}: "
+            f"{rounds} rounds in {walls[key]:.2f}s, batches {_batches(seen)} "
+            f"({traj.row_rounds} game rows searched), {int(traj.valid.sum())} fragments, "
+            f"tally {tally[-1]}/{tally[1]}/{tally[0]} (x/o/draws); every game ended, "
+            "its fragments and winner on its own game id; launches " + ", ".join(
+                f"{k}={v}" for k, v in launches[key].items())
+            + (" (equal what the searches predict)" if dev.type == "cuda" else ""))
+
+    run_dir = os.path.join(ROOT, "build", f"compaction-{os.getpid()}-{int(time.time())}")
+    games_dir = os.path.join(run_dir, "games")
+    os.makedirs(run_dir)
+    cuts = dict(iterations=iterations, arena_round_limit=9, simulate_round_limit=9)
+    cfg_path = _config_copy(os.path.join(run_dir, "ttt.toml"), cuts)
+    say("compaction", f"the CLI's play -1 mcts -2 random --compact-arena, tic-tac-toe, "
+        f"{games} games, {iterations} UCB1 iterations a move, 9-step playouts, min_batch "
+        f"{arena_min}; in {run_dir}")
+    taps, seen = {}, collections.Counter()
+    real_play, real_actions = versus.play, versus._round_actions
+
+    def play(*a, **kw):
+        R.reset_launches()
+        taps["result"] = real_play(*a, min_batch=arena_min, **kw)
+        _sync(dev)
+        taps["launches"] = dict(R.launches)
+        taps["shapes"] = collections.Counter(R.launch_shapes)
+        return taps["result"]
+
+    def round_actions(env, p1, p2, states, *a, **kw):
+        seen[batch_size(states)] += 1
+        return real_actions(env, p1, p2, states, *a, **kw)
+
+    out = io.StringIO()
+    argv = ["--device", dev.type, "--seed", str(seed), "-g", "tictactoe", "-c", cfg_path,
+            "--compact-arena", "play", "-1", "mcts", "-2", "random", "--num-games", str(games),
+            "-o", games_dir]
+    versus.play, versus._round_actions = play, round_actions
+    try:
+        _sync(dev)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        versus.play, versus._round_actions = real_play, real_actions
+    if rc != 0:
+        raise AssertionError("play exited non-zero")
+    res = taps["result"]
+    launches["compaction_arena"], shapes["compaction_arena"] = taps["launches"], taps["shapes"]
+    if res.wins_p1 + res.wins_p2 + res.draws != games or len(seen) < 2:
+        raise AssertionError(f"tally {res.wins_p1}/{res.wins_p2}/{res.draws}, batches {seen}")
+    recs = records.load_all_games(games_dir)
+    kinds = {-1: "mcts", 1: "random", 0: "none"}
+    for rec in recs:  # each game replays on the cpu to its recorded winner
+        st = ttt.TttState(board=torch.tensor([rec.initial_state["board"]], dtype=torch.int32),
+                          player=torch.tensor([rec.initial_state["player"]], dtype=torch.int32))
+        for turn in rec.turns:
+            st = ttt.step(st, torch.tensor([turn.action]))
+        if not bool(ttt.done(st)[0]) or kinds[int(ttt.winner(st)[0])] != rec.winner:
+            raise AssertionError(f"record {rec.id} replays to another result")
+    if len(recs) != games or [r.winner for r in recs].count("mcts") != res.wins_p1:
+        raise AssertionError(f"{len(recs)} records, tally {res.wins_p1}")
+    _check_launches(dev, "compaction_arena", launches["compaction_arena"],
+                    {"gather_rows": res.mcts_searches * iterations,
+                     "scatter_rows": res.mcts_searches * (iterations + 1)})
+    say("compaction", f"on {card}: {res.rounds} rounds in {wall:.2f}s, batches "
+        f"{_batches(seen)}, tally {res.wins_p1}/{res.wins_p2}/{res.draws} (mcts/random/draws) "
+        f"of {games}; all {games} records replay to their winners; launches " + ", ".join(
+            f"{k}={v}" for k, v in launches["compaction_arena"].items())
+        + (" (equal what the searches predict)" if dev.type == "cuda" else ""))
+    shutil.rmtree(games_dir)
+    return launches, shapes
+
+
+def _min_batches(games):
+    """(self-play, arena) min_batch: the JAX package's defaults, 128 and 64,
+    at full width; a CPU rehearsal's few games scale them down so that
+    compaction still fires."""
+    return min(128, max(2, games // 8)), min(64, max(2, games // 16))
+
+
+def _dp_step_check(dev, spec, rank, init, seed) -> str:
+    """One train step on a 2-process group (each process on its half of a
+    batch of 64, weight-0 rows in the second half) against one process on
+    the whole batch, TF32 off: loss, gradients, BatchNorm running
+    statistics, Adam's moments and the parameters after the step."""
+    import torch.distributed as dist
+
+    from die_e_tpu_torch.envs import backgammon as bg
+    from die_e_tpu_torch.parallel.multihost import all_reduce_, batch_slice, initialize_multihost
+    from die_e_tpu_torch.train.learner import create_train_state, set_process_group, train_step
+
+    cluster = initialize_multihost(init, 2, rank, device=dev.type)
+    try:
+        obs = bg.observe(_random_states(bg, 64, 12, dev, seed))
+        batch = [x.to(dev) for x in _step_batch(spec, obs, seed)]
+        two = set_process_group(create_train_state(spec, seed, device=dev), dist.group.WORLD)
+        one = create_train_state(spec, seed, device=dev)
+        _set_tf32(False)  # after resolve_device, which turns TF32 on
+        p0 = {k: p.detach().cpu().clone() for k, p in one.net.named_parameters()}
+        mine = batch_slice(64, rank, 2)
+        _sync(dev)
+        t0 = time.perf_counter()
+        _, m2 = train_step(two, *(x[mine] for x in batch), batch[3].sum().clamp_min(1.0))
+        _sync(dev)
+        step_s = time.perf_counter() - t0
+        loss2 = all_reduce_(m2["loss"].detach().clone(), dist.group.WORLD).item()
+        _, m1 = train_step(one, *batch)
+        errs = _step_errors(_step_outputs(two, loss2, p0),
+                            _step_outputs(one, m1["loss"].item(), p0), p0,
+                            one.opt.param_groups[0])
+        cost = _all_reduce_cost(dev)
+    finally:
+        _set_tf32(dev.type == "cuda")
+        cluster.close()
+    # float32 with TF32 off on both sides: only the order of sums differs
+    tol = {"loss": 1e-5, "grads": 1e-5, "running stats": 1e-5, "exp_avg": 1e-5,
+           "exp_avg_sq": 2e-5, "adam update": 1e-6, "params": 1.0}
+    return (f"2-process train step ({spec.n_filters}x{spec.n_res_blocks}, batch 64 as 2 x 32, "
+            f"weight-0 rows in the second half, TF32 off, {cluster.backend}, first step "
+            f"{step_s * 1e3:.1f} ms) against one process: "
+            + _check_errors("2-process train step", errs, tol) + " " + STEP_ERRORS_DOC
+            + "; " + cost)
+
+
+def _all_reduce_cost(dev) -> str:
+    """The time of the data-parallel step's collectives at full width,
+    over the default group: one all-reduce of the 256x19 net's gradients a
+    step, and two of one BatchNorm's sums for each of its BatchNorms a step
+    (forward: 2 x 256 + 1 float64; backward: 2 x 256 float32; timed as
+    513 float64)."""
+    import torch
+    import torch.distributed as dist
+
+    from die_e_tpu_torch.envs import backgammon as bg
+    from die_e_tpu_torch.nets.resnet import BatchNorm, PolicyValueNet
+    from die_e_tpu_torch.parallel.multihost import all_reduce_
+
+    with torch.device("meta"):
+        net = PolicyValueNet(bg.SPEC)
+    n_grad = sum(p.numel() for p in net.parameters())
+    n_bn = sum(isinstance(m, BatchNorm) for m in net.modules())
+
+    def timed(t, reps):
+        all_reduce_(t, dist.group.WORLD)  # warm
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            all_reduce_(t, dist.group.WORLD)
+        _sync(dev)
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    grad_ms = timed(torch.zeros(n_grad, device=dev), 3)
+    bn_ms = timed(torch.zeros(2 * bg.SPEC.n_filters + 1, dtype=torch.float64, device=dev), 30)
+    return (f"{dist.get_backend()} all-reduce on {dev.type} at full width: the gradients "
+            f"({n_grad:,} f32, {n_grad * 4 / 1e6:.1f} MB) {grad_ms:.2f} ms, a BatchNorm's sums "
+            f"({2 * bg.SPEC.n_filters + 1} f64) {bn_ms:.3f} ms, x {2 * n_bn} a step "
+            f"({n_bn} BatchNorms x 2) = {2 * n_bn * bn_ms:.1f} ms")
+
+
+def rank_worker(args) -> int:
+    """One process of the 2-process learn phase: the 2-process train step
+    check, then the CLI's ``learn`` as process ``args.rank_worker`` of 2,
+    with the learn phase's taps; writes ``rank{i}.json`` into the run
+    directory."""
+    import contextlib
+
+    import torch
+
+    from die_e_tpu_torch.cli import main as cli
+    from die_e_tpu_torch.core.device import resolve_device
+    from die_e_tpu_torch.envs import backgammon as bg
+
+    rank, run_dir = args.rank_worker, args.run_dir
+    if args.device == "cpu":
+        torch.set_num_threads(1)
+    dev = resolve_device(args.device)
+    spec = _spec(args)
+    report = {"train_step": _dp_step_check(
+        dev, dataclasses.replace(bg.SPEC, n_filters=32, n_res_blocks=2), rank,
+        f"file://{run_dir}/rendezvous-step", args.seed)}
+    from die_e_tpu_torch.core.config import load_config
+
+    iterations = args.iterations or load_config(CONFIG).mcts.iterations
+    with contextlib.ExitStack() as stack:
+        if spec != bg.SPEC:  # a CPU rehearsal's smaller net
+            for name, value in (("SPEC", spec), ("ENV", dataclasses.replace(bg.ENV, spec=spec))):
+                stack.callback(setattr, bg, name, getattr(bg, name))
+                setattr(bg, name, value)
+        taps = stack.enter_context(_Taps(dev, iterations))
+        os.chdir(run_dir)
+        rc = cli.main(["--device", args.device, "--seed", str(args.seed), "-g", "backgammon",
+                       "-c", "learn2.toml", "--metrics-jsonl", "metrics.jsonl",
+                       "--coordinator", f"file://{run_dir}/rendezvous-learn",
+                       "--num-processes", "2", "--process-id", str(rank), "learn"])
+    report.update(rc=rc, seconds=taps.seconds, steps=taps.steps, launches=taps.launches,
+                  shapes={k: [[*s, c] for s, c in v.items()] for k, v in taps.shapes.items()})
+    with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return rc
+
+
+def phase_learn_2proc(dev, spec, games, iterations, seed, learn_dir, argv):
+    """The port's CLI ``learn`` as 2 processes on this one device (gloo),
+    from the learn phase's ``best``; returns the kernels' launches by path
+    and their launch shapes."""
+    import json as json_
+
+    import numpy as np
+
+    run_dir = os.path.join(ROOT, "build", f"learn2-{os.getpid()}-{int(time.time())}")
+    mdir = os.path.join(run_dir, "models", "backgammon")
+    os.makedirs(mdir)
+    shutil.copytree(os.path.join(learn_dir, "models", "backgammon", "best"),
+                    os.path.join(mdir, "best"))
+    cuts = dict(LEARN2_CUTS, num_self_play_batches=games, iterations=iterations)
+    _config_copy(os.path.join(run_dir, "learn2.toml"), cuts)
+    say("learn2", f"the CLI's learn as 2 processes (gloo, one device), configs/bg_full.toml "
+        f"at B={games} ({games // 2} a process) iterations={iterations} net="
+        f"{spec.n_filters}x{spec.n_res_blocks}, cut to "
+        + ", ".join(f"{k}={v}" for k, v in LEARN2_CUTS.items())
+        + f", from the learn phase's best; in {run_dir}")
+    # one thread a process: gloo's small all-reduces wait less for the host
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    logs = [open(os.path.join(run_dir, f"rank{r}.log"), "w") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank-worker",
+                               str(r), "--run-dir", run_dir, *argv],
+                              env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(60.0, BUDGET_S - elapsed()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = open(os.path.join(run_dir, f"rank{r}.log")).read()[-4000:]
+            raise AssertionError(f"process {r} exited {p.returncode}:\n{tail}")
+    reports = [json_.load(open(os.path.join(run_dir, f"rank{r}.json"))) for r in range(2)]
+    events = [[json_.loads(line) for line in open(os.path.join(run_dir, name))]
+              for name in ("metrics.jsonl", "metrics.jsonl.p1")]
+
+    def series(evs, event, key):
+        return [e[key] for e in evs if e["event"] == event]
+
+    frags, losses = ([series(ev, e, k) for ev in events]
+                     for e, k in (("self_play", "fragments"), ("train_epoch", "loss")))
+    if frags[0] != frags[1] or losses[0] != losses[1] or not losses[0] or not all(
+            np.isfinite(losses[0])):
+        raise AssertionError(f"fragments {frags}, losses {losses}")
+    if series(events[0], "dist", "backend") != ["gloo"] * 1 or series(
+            events[1], "dist", "rank") != [1]:
+        raise AssertionError(f"dist events {[series(ev, 'dist', 'backend') for ev in events]}")
+    gates = [e for e in events[0] if e["event"] == "gate"]
+    if len(gates) != 1 or (gates[0]["result"], gates[0]["games"]) != ("best_kept", 100):
+        raise AssertionError(f"gates {gates}")
+    if any(e["event"] in ("gate", "model_saved") for e in events[1]) or any(
+            k in reports[1]["seconds"] for k in ("gate", "checkpoint writes")):
+        raise AssertionError("process 1 gated or wrote a checkpoint")
+    run_id = series(events[0], "run_start", "run_id")[0]
+    for rel in ("models/backgammon/model_0", "models/backgammon/latest_state",
+                f"data/backgammon/run-{run_id}/lrn-0/sp-0/memory.npz"):
+        if not os.path.exists(os.path.join(run_dir, rel)):
+            raise AssertionError(f"missing {rel}")
+    meta = json_.load(open(os.path.join(mdir, "latest_meta.json")))
+    if meta != {"run_id": run_id, "next_learn_iter": 1}:
+        raise AssertionError(f"resume cursor {meta}")
+    launches, shapes = {}, {}
+    for r, rep in enumerate(reports):
+        for path, counts in rep["launches"].items():
+            if counts:
+                launches[f"learn2_{path[len('learn_'):]}_p{r}"] = counts
+                shapes[f"learn2_{path[len('learn_'):]}_p{r}"] = collections.Counter(
+                    {tuple(x[:4]): x[4] for x in rep["shapes"][path]})
+        at_half = shapes[f"learn2_self_play_p{r}"]
+        if dev.type == "cuda" and not all(at_half[(k, games // 2, iterations + 1, 2048)] > 0
+                                          for k in ("gather_rows", "scatter_rows")):
+            raise AssertionError(f"process {r} did not launch both kernels at B = {games // 2}")
+    say("learn2", reports[0]["train_step"])
+    say("learn2", f"2 processes in {wall:.2f}s (process start included); fragments {frags[0]} "
+        f"and losses {', '.join(f'{x:.4f}' for x in losses[0])} identical on both; only process "
+        "0 gated (best_kept, 100 draws) and wrote checkpoints, data and the cursor")
+    for r, rep in enumerate(reports):
+        secs = rep["seconds"]
+        say("learn2", f"process {r} wall time by stage: " + ", ".join(
+            f"{k} {v:.3f}s" for k, v in secs.items())
+            + f"; {rep['steps']} train steps, {rep['steps'] / secs['train']:.2f} steps/s "
+            f"({1e3 * secs['train'] / rep['steps']:.1f} ms a step, data-parallel over gloo)")
+    for path, counts in launches.items():
+        say("learn2", f"{path}: launches " + ", ".join(f"{k}={v}" for k, v in counts.items())
+            + (" at B = " + ", ".join(str(b) for b in sorted({k[1] for k in shapes[path]}))
+               + " (each call's counts equal what its search levels predict)"
+               if dev.type == "cuda" else ""))
+    return launches, shapes
+
+
 def _sync(dev) -> None:
     if dev.type == "cuda":
         import torch
@@ -980,24 +1477,22 @@ def main(argv=None) -> int:
     try:
         from die_e_tpu_torch.core.config import load_config
         from die_e_tpu_torch.core.device import resolve_device
-        from die_e_tpu_torch.envs import backgammon as bg
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})",
               file=sys.stderr, flush=True)
         return 2
 
+    if args.rank_worker is not None:
+        return rank_worker(args)
     dev = resolve_device("cuda:0" if args.device == "cuda" else "cpu")
     cfg = load_config(CONFIG)
     games = args.games or cfg.alphazero.num_self_play_batches
     iterations = args.iterations or cfg.mcts.iterations
-    spec = dataclasses.replace(
-        bg.SPEC,
-        n_filters=args.filters or bg.SPEC.n_filters,
-        n_res_blocks=args.blocks if args.blocks is not None else bg.SPEC.n_res_blocks,
-    )
+    spec = _spec(args)
     from die_e_tpu_torch.ops.rows import pad_actions
 
     device = phase_device(dev)
+    card = device.get("smi", "the cpu (rehearsal)")
     check_budget("device")
     phase_build(dev)
     check_budget("build")
@@ -1009,21 +1504,35 @@ def main(argv=None) -> int:
     check_budget("reference")
     launches = phase_self_play(dev, cfg, spec, games, iterations, ROUNDS, args.seed)
     check_budget("self-play")
-    by_path = phase_learn(dev, spec, games, iterations, args.seed)
+    by_path, _, learn_dir = phase_learn(dev, spec, games, iterations, args.seed)
     check_budget("learn")
-    mcts_launches = phase_mcts(dev, mcts_games, iterations, args.seed,
-                               device.get("smi", "the cpu (rehearsal)"))
+    mcts_launches = phase_mcts(dev, mcts_games, iterations, args.seed, card)
     check_budget("mcts")
+    compaction, compaction_shapes = phase_compaction(dev, cfg, games, iterations, args.seed,
+                                                     card)
+    errs = [_check_kernels_at(dev, sum(compaction_shapes.values(), collections.Counter()),
+                              args.seed, "compaction")]
+    check_budget("compaction")
+    rank_argv = ["--device", args.device, "--seed", str(args.seed)] + [
+        f"--{k}={getattr(args, k)}" for k in ("games", "iterations", "filters", "blocks")
+        if getattr(args, k) is not None]
+    learn2, learn2_shapes = phase_learn_2proc(dev, spec, games, iterations, args.seed,
+                                              learn_dir, rank_argv)
+    errs.append(_check_kernels_at(dev, sum(learn2_shapes.values(), collections.Counter()),
+                                  args.seed, "learn2"))
+    check_budget("learn2")
     if dev.type != "cuda":
         say("done", "cpu rehearsal passed (no device numbers, no result line)")
         return 0
     for k in kernels:
-        paths = {"self_play": launches[k["name"]],
-                 **{p: c[k["name"]] for p, c in by_path.items()},
-                 "mcts_arena": mcts_launches[k["name"]]}
+        name = k["name"]
+        paths = {"self_play": launches[name],
+                 **{p: c[name] for p, c in {**by_path, **compaction, **learn2}.items()},
+                 "mcts_arena": mcts_launches[name]}
         # the main path: the learn phase's self-play and arena
-        k["launches"] = by_path["learn_self_play"][k["name"]] + by_path["learn_arena"][k["name"]]
+        k["launches"] = by_path["learn_self_play"][name] + by_path["learn_arena"][name]
         k["launches_by_path"] = paths
+        k["max_abs_err"] = max([k["max_abs_err"]] + [e[name] for e in errs])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                              "count": device["count"]}}), flush=True)

@@ -1,8 +1,9 @@
-"""die-e-tpu on PyTorch and CUDA: the port of ``die_e_tpu`` to one NVIDIA
-H100.
+"""die-e-tpu on PyTorch and CUDA: the port of ``die_e_tpu`` to NVIDIA
+H100s.
 
 The package mirrors the JAX package's layout (``core/``, ``envs/``,
-``nets/``, ``ops/``, ``search/``, ``train/``) and is held against it by the
+``nets/``, ``ops/``, ``parallel/``, ``search/``, ``train/``, ``arena/``,
+``cli/``; ``entry.py`` for ``__graft_entry__.py``) and is held against it by the
 ``tests/test_torch_*.py`` files.  It imports ``torch`` and never JAX or the
 JAX package.  Functions act on batched ``[B, ...]`` tensors; entry points
 take an explicit ``device`` and run on ``cuda`` unless the caller asks for

@@ -4,14 +4,20 @@ The same subcommands and flags: ``learn`` (``-m``, ``--resume``),
 ``train`` (``-m -o -r -l -s``), ``play`` (``-1``/``-2`` random, mcts or
 model, ``--model1-path``, ``--model2-path``, ``-o`` for one JSON record
 per game, ``--num-games``) and ``replay GAME_PATH [--no-wait]``, with the
-global ``-c``/``--config``, ``-g``/``--game``, ``--seed`` and
-``--metrics-jsonl``.  ``--device cuda|cpu`` (default ``cuda``) takes the
-place of ``--platform``.  Like the JAX package's CLI it writes
+global ``-c``/``--config``, ``-g``/``--game``, ``--seed``,
+``--metrics-jsonl``, ``--mesh-data``/``--mesh-model`` and the cluster
+flags ``--coordinator``/``--num-processes``/``--process-id``.
+``--device cuda|cpu`` (default ``cuda``) takes the place of
+``--platform``.  ``--compact-self-play`` and ``--compact-arena`` take the
+place of the JAX package's ``DIE_E_SP_COMPACT=1`` and
+``DIE_E_ARENA_COMPACT=1``.  Like the JAX package's CLI it writes
 ``./data/{game}/...`` and ``./models/{game}/...`` under the working
 directory.
 
-Not ported yet, and refused with an error naming the ROADMAP item: the
-mesh and multi-process flags (Queue 1 item 3: ``parallel/``).
+Several processes (``learn`` only): start one per card, each with the same
+``--coordinator`` and ``--num-processes`` and its own ``--process-id`` (or
+under torchrun, which sets them); each process other than 0 writes its
+metrics to ``<--metrics-jsonl>.p{rank}``.
 
 Usage:  python -m die_e_tpu_torch.cli.main -g backgammon learn
 """
@@ -20,9 +26,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-
-NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1 item 3: {})"
-
 
 def _get_env(name: str):
     if name == "backgammon":
@@ -61,9 +64,21 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["backgammon", "tictactoe"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to run (cuda needs a card; there is no fallback)")
-    for flag in ("--mesh-data", "--mesh-model", "--num-processes", "--process-id"):
-        p.add_argument(flag, type=int, default=None, help="not ported yet")
-    p.add_argument("--coordinator", default=None, help="not ported yet")
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="processes on the data axis: the process count, or -1")
+    p.add_argument("--mesh-model", type=int, default=None,
+                   help="the model axis; only 1 is supported")
+    p.add_argument("--coordinator", default=None,
+                   help="process 0's host:port (or a tcp:// or file:// URL) that the "
+                        "processes of a multi-process learn meet at")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="processes in the group (one per card)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank in the group")
+    p.add_argument("--compact-self-play", action="store_true",
+                   help="re-pack live self-play games as games finish")
+    p.add_argument("--compact-arena", action="store_true",
+                   help="re-pack live arena games as games finish (gate and play)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--metrics-jsonl", default=None,
                    help="append structured metric events to this JSONL file")
@@ -96,23 +111,41 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    if any(getattr(args, f) is not None for f in
-           ("mesh_data", "mesh_model", "coordinator", "num_processes", "process_id")):
-        raise SystemExit("the mesh and multi-process flags " + NOT_PORTED.format("parallel/"))
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    from die_e_tpu_torch.parallel.multihost import initialize_multihost
+
+    cluster = initialize_multihost(args.coordinator, args.num_processes,
+                                   args.process_id, device=args.device)
+    try:
+        return _run(args, cluster)
+    finally:
+        if cluster is not None:
+            cluster.close()
+
+
+def _run(args, cluster) -> int:
+    import dataclasses
+
     import torch
 
     from die_e_tpu_torch.core.config import load_config
     from die_e_tpu_torch.core.device import resolve_device
     from die_e_tpu_torch.core.metrics import Metrics
 
-    dev = resolve_device(args.device)
+    if cluster is not None and args.command != "learn":
+        raise SystemExit(f"{args.command} runs in one process; only learn runs on several")
+    dev = cluster.device if cluster is not None else resolve_device(args.device)
+    # every process logs, each to its own file (concurrent appends interleave)
+    if args.metrics_jsonl and cluster is not None and cluster.rank != 0:
+        args.metrics_jsonl = f"{args.metrics_jsonl}.p{cluster.rank}"
     config = load_config(args.config)
+    mesh = config.mesh
+    if args.mesh_data is not None:
+        mesh = dataclasses.replace(mesh, data=args.mesh_data)
+    if args.mesh_model is not None:
+        mesh = dataclasses.replace(mesh, model=args.mesh_model)
+    config = dataclasses.replace(config, mesh=mesh)
     env_mod = _get_env(args.game)
     env = env_mod.ENV
     metrics = Metrics(jsonl_path=args.metrics_jsonl)
@@ -121,7 +154,9 @@ def main(argv=None):
         from die_e_tpu_torch.train.learn import learn
 
         learn(env, config, seed=args.seed, model_path=args.model_path,
-              metrics=metrics, resume=args.resume, device=dev)
+              metrics=metrics, resume=args.resume, device=dev, cluster=cluster,
+              compact_self_play=args.compact_self_play,
+              compact_arena=args.compact_arena)
 
     elif args.command == "play":
         from die_e_tpu_torch.arena.versus import play
@@ -133,7 +168,7 @@ def main(argv=None):
             config.mcts, temperature=config.alphazero.temperature,
             num_games=args.num_games or config.arena.num_games,
             round_limit=config.arena.round_limit, record=args.output_path is not None,
-            metrics=metrics,
+            metrics=metrics, compact=args.compact_arena,
         )
         print(result)
         if args.output_path:

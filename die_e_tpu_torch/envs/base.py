@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Tuple
 
+import numpy as np
 import torch
 
 State = Any  # a dataclass whose fields are [B, ...] tensors
@@ -49,6 +50,64 @@ def compact_take(states: State, done, idx):
     """Re-pack a lockstep batch: rows ``idx`` [new_B] of every state field
     and of the done mask."""
     return map_state(lambda a: a.index_select(0, idx), states), done.index_select(0, idx)
+
+
+def compaction_plan(done_h, min_batch: int):
+    """The host half of batch compaction: from the done mask [B] (numpy
+    bool), an int32 index array [new_B] that packs the live games first,
+    padded with finished games (they step frozen), or None when the batch
+    would not shrink.  new_B is the smallest ladder size >= max(live,
+    min_batch) on the ladder {2^k} U {3*2^k} (..., 64, 96, 128, 192, 256,
+    384, ...); the 3*2^k rungs roughly halve a power-of-two ladder's
+    padding of finished games."""
+    b = len(done_h)
+    live_idx = np.nonzero(~done_h)[0]
+    live = max(int(live_idx.size), 1, min_batch)
+    pow2 = 1 << (live - 1).bit_length()          # smallest 2^k >= live
+    new_b = pow2 if live > 3 * pow2 // 4 else 3 * pow2 // 4
+    if new_b >= b:
+        return None
+    fill = np.nonzero(done_h)[0][: new_b - live_idx.size]
+    return np.concatenate([live_idx, fill]).astype(np.int32)
+
+
+class CompactionTracker:
+    """Per-original-game done and winner bookkeeping for a round loop that
+    re-packs live games (:func:`compaction_plan` + :func:`compact_take`).
+
+    A compacted batch holds only the games it kept, so a finished game's
+    winner must be merged before a compaction can drop it:
+
+    * ``merge(done_h, winner_h, gmap)`` folds a done mask and winners,
+      given in the game mapping ``gmap`` (default: the current mapping
+      ``orig``), into the accumulators;
+    * ``take(idx)`` applies a compaction plan to the mapping (the caller
+      applies the same ``idx`` to its batch with ``compact_take``);
+    * ``current_done()`` is the accumulated done mask in the current
+      mapping;
+    * ``final_winner()`` is the accumulated winner of each original game,
+      0 where it never finished (a draw at the round limit).
+    """
+
+    def __init__(self, num_games: int):
+        self.orig = np.arange(num_games)
+        self._done = np.zeros(num_games, bool)
+        self._winner = np.zeros(num_games, np.int32)
+
+    def merge(self, done_h, winner_h, gmap=None) -> None:
+        gmap = self.orig if gmap is None else gmap
+        self._done[gmap] |= done_h
+        fin = np.nonzero(done_h)[0]
+        self._winner[gmap[fin]] = winner_h[fin]
+
+    def take(self, idx) -> None:
+        self.orig = self.orig[idx]
+
+    def current_done(self):
+        return self._done[self.orig]
+
+    def final_winner(self):
+        return np.where(self._done, self._winner, 0).astype(np.int32)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -37,18 +37,74 @@ def _conv(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, padding=1)
 
 
+class _CrossRankBatchNorm(torch.autograd.Function):
+    """Training BatchNorm whose statistics are those of the rows of every
+    rank of ``bn.group`` together, as flax's BatchNorm reduces over the
+    whole global batch under a sharded jit.
+
+    Forward: one all-reduce of the per-channel (sum, sum of squares) and
+    the element count, in float64, so that E[x^2] - E[x]^2 (flax's own
+    formula) loses nothing to cancellation before the float32 result.
+    Backward: one all-reduce of (sum dy, sum dy * xhat).  Two collectives
+    a layer a step, the fewest global statistics allow.  The weight and
+    bias gradients returned are this rank's own sums; the data-parallel
+    step sums them over the ranks with the other gradients."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, bn):
+        from die_e_tpu_torch.parallel.multihost import all_reduce_
+
+        c = x.shape[1]
+        xd = x.double()
+        s = all_reduce_(torch.cat([xd.sum((0, 2, 3)), (xd * xd).sum((0, 2, 3)),
+                                   xd.new_full((1,), x.numel() // c)]), bn.group)
+        count = s[2 * c]
+        mean = s[:c] / count
+        var = (s[c:2 * c] / count - mean * mean).to(x.dtype)
+        mean, count = mean.to(x.dtype), count.to(x.dtype)
+        xc = x - mean[None, :, None, None]
+        with torch.no_grad():
+            bn.running_mean.lerp_(mean, bn.momentum)
+            bn.running_var.lerp_(var, bn.momentum)
+        invstd = torch.rsqrt(var + bn.eps)
+        xhat = xc * invstd[None, :, None, None]
+        ctx.save_for_backward(xhat, weight, invstd, count)
+        ctx.group = bn.group
+        return xhat * weight[None, :, None, None] + bias[None, :, None, None]
+
+    @staticmethod
+    def backward(ctx, dy):
+        from die_e_tpu_torch.parallel.multihost import all_reduce_
+
+        xhat, weight, invstd, count = ctx.saved_tensors
+        c = dy.shape[1]
+        dbias = dy.sum((0, 2, 3))
+        dweight = (dy * xhat).sum((0, 2, 3))
+        sums = all_reduce_(torch.cat([dbias, dweight]), ctx.group) / count
+        dx = (weight * invstd)[None, :, None, None] * (
+            dy - sums[:c][None, :, None, None] - xhat * sums[c:][None, :, None, None])
+        return dx, dweight, dbias, None
+
+
 class BatchNorm(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose training forward updates the running
     variance with the biased batch variance, as flax does; torch's own
     update uses the unbiased one, n/(n-1) larger (n = B*H*W).  The output
-    is normalised with the biased variance in both."""
+    is normalised with the biased variance in both.
+
+    ``group``: a process group of more than one rank makes the training
+    statistics those of all its ranks' rows (:class:`_CrossRankBatchNorm`;
+    ``train/learner.py::set_process_group`` sets it)."""
 
     def __init__(self, c: int):
         super().__init__(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.group is not None:
+            return _CrossRankBatchNorm.apply(x, self.weight, self.bias, self)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             self.running_mean.lerp_(mean, self.momentum)

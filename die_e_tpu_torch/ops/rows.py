@@ -21,12 +21,14 @@ Out-of-range ``idx`` gives a zero row on gather and writes nothing on
 scatter, as the JAX package's fallbacks ``_gather_rows_reduce`` and
 ``_scatter_rows_where`` do.
 
-``launches`` counts kernel launches by name; callers reset it to read how
-often a run went through the kernels.
+``launches`` counts kernel launches by name, and ``launch_shapes`` by
+name and store shape ``(B, N, L)``; callers reset both to read how often,
+and at which shapes, a run went through the kernels.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -38,6 +40,7 @@ SUBLANE = 8
 _VEC = 16  # bytes per vector load/store in the kernels
 
 launches = {"gather_rows": 0, "scatter_rows": 0}
+launch_shapes: collections.Counter = collections.Counter()  # (name, B, N, L) -> launches
 
 _SIGNATURES = (
     ("rows_gather", (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3
@@ -50,6 +53,12 @@ _SIGNATURES = (
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    launch_shapes.clear()
+
+
+def _count(name: str, store: torch.Tensor) -> None:
+    launches[name] += 1
+    launch_shapes[(name, *store.shape)] += 1
 
 
 def pad_actions(a: int) -> int:
@@ -121,7 +130,7 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         _row_vecs(src), torch.cuda.current_stream(src.device).cuda_stream)
     if err:
         raise RuntimeError(f"rows_gather launch failed: cudaError {err}")
-    launches["gather_rows"] += 1
+    _count("gather_rows", src)
     return out
 
 
@@ -151,5 +160,5 @@ def scatter_rows(dst: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
         b, n, vecs, torch.cuda.current_stream(dst.device).cuda_stream)
     if err:
         raise RuntimeError(f"rows_scatter launch failed: cudaError {err}")
-    launches["scatter_rows"] += 1
+    _count("scatter_rows", dst)
     return dst

@@ -150,18 +150,23 @@ class AsyncSaver:
         self._executor.shutdown(wait=True)
 
 
-def resolve_state_dir(path) -> Optional[Path]:
+def resolve_state_dir(path, heal: bool = True) -> Optional[Path]:
     """The reader's half of :meth:`AsyncSaver.save_state`'s swap: the
     directory holding the newest complete full state for ``path``, or None.
 
     A kill can land mid-write to ``path.new`` (``path`` still holds the
     previous state), between the two renames (``path`` is gone and
     ``path.new`` is complete), or after the swap.  Prefers ``path``, then
-    heals ``path.new`` or ``path.old`` into place.  A restore from the
-    result may still fail on a torn file; callers fall back then."""
+    ``path.new``, then ``path.old``.  With ``heal`` (the one process that
+    writes) it renames the chosen one into place and removes the others;
+    without (every other process of a group, after the writer has healed)
+    it only reads.  A restore from the result may still fail on a torn
+    file; callers fall back then."""
     target = Path(path)
     new = target.with_name(target.name + ".new")
     old = target.with_name(target.name + ".old")
+    if not heal:
+        return next((p for p in (target, new, old) if p.exists()), None)
     if target.exists():
         # leftovers of a swap: both are older than `target`
         shutil.rmtree(new, ignore_errors=True)

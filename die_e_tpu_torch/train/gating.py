@@ -86,10 +86,12 @@ class SequentialGate:
 
 
 def gate(env, candidate: PolicyValueNet, gen, mcts_cfg, arena_cfg,
-         temperature: float, models_base: str = "./models", metrics=None) -> bool:
+         temperature: float, models_base: str = "./models", metrics=None,
+         compact: bool = False) -> bool:
     """Run the gate for the ``candidate`` net (eval mode) with ``gen`` on
     its device; promotes it (writes the ``best`` checkpoint) and returns
-    True iff it became the new best."""
+    True iff it became the new best.  ``compact``: the arena re-packs live
+    games as games finish (``arena/versus.py::play``)."""
     best_path = ckpt.best_model_path(env.spec.name, models_base)
     if not best_path.exists():
         if metrics is not None:
@@ -104,7 +106,8 @@ def gate(env, candidate: PolicyValueNet, gen, mcts_cfg, arena_cfg,
 
     def match(n):
         return play(env, p_cand, p_best, gen, mcts_cfg, temperature=temperature,
-                    num_games=n, round_limit=arena_cfg.round_limit, metrics=metrics)
+                    num_games=n, round_limit=arena_cfg.round_limit, metrics=metrics,
+                    compact=compact)
 
     sequential = bool(arena_cfg.gate_sequential)
     if sequential:

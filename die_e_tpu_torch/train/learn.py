@@ -1,5 +1,5 @@
 """The AlphaZero learn loop (self-play -> train -> gate): the port of
-``die_e_tpu/train/learn.py``, single process on one device.
+``die_e_tpu/train/learn.py``.
 
 Per learn iteration: ``self_play_iterations`` batched self-play runs
 append to the iteration's memory, each saved under
@@ -17,10 +17,21 @@ back to the newest intact ``model_i`` with a fresh optimizer.
 
 Randomness: one ``torch.Generator`` on the device, seeded from ``seed``
 (and from the resumed iteration, so that a resumed run does not replay a
-fresh run's draws), feeds self-play, the epoch permutations and the gate.
+fresh run's draws).  It draws, for each self-play run, the seed of the
+global game set (``core/prng.py::per_game_seeds``) and the seed of the
+run's own generator, then the epoch permutations and the seed of each
+gate's generator.
 
-The JAX package's multi-process and mesh branches are not ported
-(ROADMAP.md Queue 1 item 3, ``parallel/``).
+Several processes (``cluster``, from
+``parallel/multihost.py::initialize_multihost``): the same loop runs in
+every process, and every process draws the same numbers from that
+generator.  Each process self-plays its contiguous slice of the global
+game set with a generator of its own (seeded from the shared draw and its
+rank); the memory and the winners are all-gathered, so every process
+trains on the identical global memory, data-parallel
+(``train/learner.py``); only process 0 touches the filesystem (run
+directories, training data, checkpoints, the gate and the resume cursor),
+while the others wait at the next gather.
 """
 
 from __future__ import annotations
@@ -33,24 +44,35 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from die_e_tpu_torch.core.config import Config
 from die_e_tpu_torch.core.device import resolve_device
+from die_e_tpu_torch.core.mesh import make_mesh
 from die_e_tpu_torch.core.metrics import Metrics, Timer
+from die_e_tpu_torch.core.prng import seed_from
+from die_e_tpu_torch.parallel.multihost import (
+    allgather_memory,
+    allgather_memory_sparse,
+    broadcast_str,
+    process_batch_slice,
+)
 from die_e_tpu_torch.train import checkpoint as ckpt
 from die_e_tpu_torch.train.gating import gate
 from die_e_tpu_torch.train.learner import (
     compact_memory,
     create_train_state,
     net_eval_fn,
+    set_process_group,
     train_epoch,
     train_epoch_device,
     upload_epoch_data,
 )
 from die_e_tpu_torch.train.replay import Memory, load_all_training_data, save_training_data
-from die_e_tpu_torch.train.self_play import self_play, trajectory_to_memory
+from die_e_tpu_torch.train.self_play import self_play_from_states, trajectory_to_memory
 
 GATE_RESUME_SALT = 0x6A7E
+RUN_ID_CHARS = 21
 
 
 def _write_meta_atomic(path: Path, meta: dict) -> None:
@@ -63,25 +85,46 @@ def _write_meta_atomic(path: Path, meta: dict) -> None:
 
 def _generator(dev, *seeds: int) -> torch.Generator:
     """A generator on ``dev`` seeded from a tuple of integers."""
-    s = int(np.random.SeedSequence(list(seeds)).generate_state(1, np.uint64)[0] >> 1)
-    return torch.Generator(device=dev).manual_seed(s)
+    return torch.Generator(device=dev).manual_seed(seed_from(*seeds))
 
 
-def _fresh_state(env, config: Config, seed: int, dev):
+def _draw(gen: torch.Generator, n: int) -> list:
+    """``n`` integers in [0, 2^62) from ``gen``."""
+    return torch.randint(0, 2 ** 62, (n,), generator=gen, device=gen.device).tolist()
+
+
+def _fresh_state(env, config: Config, seed: int, dev, group=None):
     opt = config.optimizer
-    return create_train_state(env.spec, seed, lr=opt.lr, wd=opt.wd, device=dev)
+    state = create_train_state(env.spec, seed, lr=opt.lr, wd=opt.wd, device=dev)
+    return set_process_group(state, group)
 
 
 def learn(env, config: Config, seed: int = 0, model_path: Optional[str] = None,
           data_base: str = "./data", models_base: str = "./models",
           metrics: Optional[Metrics] = None, run_id: Optional[str] = None,
-          resume: bool = False, device=None):
+          resume: bool = False, device=None, cluster=None,
+          compact_self_play: bool = False, compact_arena: bool = False):
     """Run the learn loop on ``device`` (cuda unless the caller asks for the
-    CPU); returns the final :class:`TrainState`."""
-    dev = resolve_device(device)
+    CPU; with a ``cluster``, on its device); returns the final
+    :class:`TrainState`.  ``compact_self_play`` and ``compact_arena``
+    re-pack live games as games finish (``train/self_play.py``,
+    ``arena/versus.py``)."""
+    dev = cluster.device if cluster is not None else resolve_device(device)
     if metrics is None:
         metrics = Metrics()
     az, mcts_cfg = config.alphazero, config.mcts
+    nproc, pid = (cluster.world_size, cluster.rank) if cluster is not None else (1, 0)
+    host = cluster.host_group if cluster is not None else None
+    group = dist.group.WORLD if cluster is not None else None
+    is_main = pid == 0
+    mesh = make_mesh(config.mesh.data, config.mesh.model, nproc)
+    if nproc > 1:
+        for key in ("num_self_play_batches", "training_batch_size"):
+            if getattr(az, key) % nproc:
+                raise ValueError(f"{key}={getattr(az, key)} not divisible by "
+                                 f"{nproc} processes")
+        metrics.log("dist", backend=cluster.backend, world_size=nproc, rank=pid,
+                    device=str(dev), **mesh)
 
     mdir = ckpt.model_dir(env.spec.name, models_base)
     meta_path = mdir / "latest_meta.json"
@@ -92,18 +135,28 @@ def learn(env, config: Config, seed: int = 0, model_path: Optional[str] = None,
         run_id = run_id or meta.get("run_id")
         start_iter = int(meta.get("next_learn_iter", 0))
         pending_gate = meta.get("pending_gate")
-    run_id = run_id or uuid.uuid4().hex[:21]
+    run_id = run_id or uuid.uuid4().hex[:RUN_ID_CHARS]
+    if nproc > 1:
+        # one run id for the group (process 0's); also the start barrier
+        run_id = broadcast_str(run_id, RUN_ID_CHARS, host)
     run_base = Path(data_base) / env.spec.name / f"run-{run_id}"
-    run_base.mkdir(parents=True, exist_ok=True)
+    if is_main:
+        run_base.mkdir(parents=True, exist_ok=True)
     metrics.log("run_start", run_id=run_id, game=env.spec.name, start_iter=start_iter)
 
-    state = _fresh_state(env, config, seed, dev)
+    state = _fresh_state(env, config, seed, dev, group)
     source = ckpt.bootstrap_variables(state.net, env.spec.name, model_path, models_base)
     latest = mdir / "latest_state"
     full_resume = False
     fallback_restored = None  # the model_{i} the fallback restored
     if resume:
-        src = ckpt.resolve_state_dir(latest)
+        # process 0 heals an interrupted swap of latest_state; the others
+        # wait for it, then only read
+        src = ckpt.resolve_state_dir(latest) if is_main else None
+        if nproc > 1:
+            dist.barrier(group=host)
+        if not is_main:
+            src = ckpt.resolve_state_dir(latest, heal=False)
         if src is not None:
             try:
                 ckpt.restore_state(src, state)
@@ -111,7 +164,7 @@ def learn(env, config: Config, seed: int = 0, model_path: Optional[str] = None,
                 source = f"{src} (full train state)"
             except Exception as e:  # a torn or unreadable checkpoint: fall back
                 metrics.log("checkpoint_unreadable", path=str(src), error=repr(e)[:200])
-                state = _fresh_state(env, config, seed, dev)
+                state = _fresh_state(env, config, seed, dev, group)
                 source = ckpt.bootstrap_variables(
                     state.net, env.spec.name, model_path, models_base)
         if not full_resume and start_iter:
@@ -135,9 +188,36 @@ def learn(env, config: Config, seed: int = 0, model_path: Optional[str] = None,
 
     def run_gate(gen):
         gate(env, state.net, gen, mcts_cfg, config.arena, az.temperature,
-             models_base, metrics)
+             models_base, metrics, compact=compact_arena)
 
-    if pending_gate is not None and (full_resume or fallback_restored == int(pending_gate)):
+    def run_self_play(gen, stats):
+        """This process's slice of the global game set, gathered over the
+        processes: (obs, ps, outcome, winner [B], game rows searched)."""
+        sp_seed, own_seed = _draw(gen, 2)
+        seeds = process_batch_slice(az.num_self_play_batches, sp_seed, pid, nproc)
+        states = env.init(torch.from_numpy(seeds.astype(np.int64)).to(dev), device=dev)
+        traj = self_play_from_states(
+            env, eval_fn, states, _generator(dev, own_seed, pid),
+            iterations=mcts_cfg.iterations, c=mcts_cfg.c,
+            dirichlet_alpha=mcts_cfg.dirichlet_alpha,
+            dirichlet_epsilon=mcts_cfg.dirichlet_epsilon,
+            temperature=az.temperature, round_limit=mcts_cfg.simulate_round_limit,
+            negamax=mcts_cfg.negamax, compact=compact_self_play,
+        )
+        obs, ps, outcome = trajectory_to_memory(traj, az.temperature)
+        winner = traj.winner.cpu().numpy()
+        rows = np.asarray([traj.row_rounds], np.int64)
+        if nproc > 1:
+            obs, ps, outcome = allgather_memory_sparse(
+                obs, ps, outcome, obs_int8=env.spec.obs_int8, stats=stats, group=host)
+            # winners are one row per game, the memory one per fragment:
+            # each gather trims by its own counts
+            (winner,) = allgather_memory(winner, group=host)
+            (rows,) = allgather_memory(rows, group=host)
+        return obs, ps, outcome, winner, int(rows.sum())
+
+    if is_main and pending_gate is not None and (
+            full_resume or fallback_restored == int(pending_gate)):
         # the previous run died between committing model_{g} and finishing
         # its gate: run that gate now, so every checkpoint challenges best
         g = int(pending_gate)
@@ -151,21 +231,13 @@ def learn(env, config: Config, seed: int = 0, model_path: Optional[str] = None,
         lrn_path = run_base / f"lrn-{l_i}"
         memory = Memory.empty(env.spec.obs_shape, env.spec.num_actions)
         for sp_i in range(az.self_play_iterations):
+            sp_stats: dict = {}
             with Timer() as t:
-                traj = self_play(
-                    env, eval_fn, gen, batch_size=az.num_self_play_batches,
-                    iterations=mcts_cfg.iterations, c=mcts_cfg.c,
-                    dirichlet_alpha=mcts_cfg.dirichlet_alpha,
-                    dirichlet_epsilon=mcts_cfg.dirichlet_epsilon,
-                    temperature=az.temperature,
-                    round_limit=mcts_cfg.simulate_round_limit,
-                    negamax=mcts_cfg.negamax, device=dev,
-                )
-                obs, ps, outcome = trajectory_to_memory(traj, az.temperature)
-                winner = traj.winner.cpu().numpy()
+                obs, ps, outcome, winner, rows = run_self_play(gen, sp_stats)
             frag = Memory(states=obs, ps=ps, outcomes=outcome)
             memory = Memory.concat([memory, frag])
-            save_training_data(frag, lrn_path / f"sp-{sp_i}")
+            if is_main:
+                save_training_data(frag, lrn_path / f"sp-{sp_i}")
             # the policy CE cannot fall below the mean entropy of its
             # targets (CE = H(target) + KL)
             p = frag.ps
@@ -177,11 +249,11 @@ def learn(env, config: Config, seed: int = 0, model_path: Optional[str] = None,
                 "self_play", learn_iter=l_i, sp_iter=sp_i, fragments=len(frag),
                 moves_per_s=moves / max(t.elapsed, 1e-9),
                 sims_per_s=moves * mcts_cfg.iterations / max(t.elapsed, 1e-9),
-                # every lockstep row searched, done games and noop plies too
-                sims_per_s_device=(traj.obs.shape[0] * az.num_self_play_batches
-                                   * mcts_cfg.iterations / max(t.elapsed, 1e-9)),
+                # every game row searched, done games and noop plies too
+                sims_per_s_device=rows * mcts_cfg.iterations / max(t.elapsed, 1e-9),
                 wins_m1=int(np.sum(winner == -1)), wins_p1=int(np.sum(winner == 1)),
                 draws=int(np.sum(winner == 0)), target_entropy=target_entropy,
+                **sp_stats,
             )
 
         # the iteration's memory goes to the device once; the host loop only
@@ -207,20 +279,24 @@ def learn(env, config: Config, seed: int = 0, model_path: Optional[str] = None,
                 samples_per_s=len(memory) / max(t.elapsed, 1e-9),
             )
 
-        model_path_i = mdir / f"model_{l_i}"
-        meta_committed = {"run_id": run_id, "next_learn_iter": l_i + 1,
-                          "pending_gate": l_i}
-        saver.save_state(
-            state, latest,
-            on_committed=lambda m=meta_committed: _write_meta_atomic(meta_path, m),
-            extra_variables_path=model_path_i,
-        )
-        # marks the submission of the save; the cursor marks its commit
-        metrics.log("model_saved", learn_iter=l_i, path=str(model_path_i))
-        run_gate(gen)
-        saver.wait()
-        _write_meta_atomic(meta_path, {"run_id": run_id, "next_learn_iter": l_i + 1})
+        (gate_seed,) = _draw(gen, 1)
+        if is_main:
+            model_path_i = mdir / f"model_{l_i}"
+            meta_committed = {"run_id": run_id, "next_learn_iter": l_i + 1,
+                              "pending_gate": l_i}
+            saver.save_state(
+                state, latest,
+                on_committed=lambda m=meta_committed: _write_meta_atomic(meta_path, m),
+                extra_variables_path=model_path_i,
+            )
+            # marks the submission of the save; the cursor marks its commit
+            metrics.log("model_saved", learn_iter=l_i, path=str(model_path_i))
+            run_gate(_generator(dev, gate_seed))
+            saver.wait()
+            _write_meta_atomic(meta_path, {"run_id": run_id, "next_learn_iter": l_i + 1})
     saver.close()
+    if nproc > 1:
+        dist.barrier(group=host)  # the others wait for process 0's last gate
     return state
 
 

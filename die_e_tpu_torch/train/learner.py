@@ -27,8 +27,16 @@ Two epoch loops, as in the JAX package:
   the last batch with wrapped rows at weight 0 (offline training, and
   ``learn`` on an empty memory).
 
-The JAX package's mesh sharding of batches and its scan chunking exist for
-the TPU's mesh and program-length limit and are not ported.
+Data parallel (:func:`set_process_group`): every rank holds the same
+memory and draws the same permutation, and takes its contiguous
+``1/world`` of the rows of each batch.  BatchNorm statistics are those of
+the whole batch (``nets/resnet.py``), each rank divides its weighted sums
+by the whole batch's weight sum, and the gradients are summed over the
+ranks, so the step is the one-process step on the whole batch; Adam then
+runs identically on every rank.  A mean of per-rank means would be wrong
+here: the weight-0 padding sits at the end of the bucket, so the last
+rank may see almost no weight.  The JAX package's scan chunking exists for
+the TPU's program-length limit and is not ported.
 """
 
 from __future__ import annotations
@@ -38,10 +46,18 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from die_e_tpu_torch.core.device import resolve_device
-from die_e_tpu_torch.nets.resnet import PolicyValueNet, forward, forward_train, make_net
+from die_e_tpu_torch.nets.resnet import (
+    BatchNorm,
+    PolicyValueNet,
+    forward,
+    forward_train,
+    make_net,
+)
+from die_e_tpu_torch.parallel.multihost import all_reduce_, batch_slice
 
 # table rows are padded to a multiple of this, as in the JAX package, so
 # that the epochs take the same steps on the same padded rows
@@ -52,15 +68,36 @@ _NAN_MESSAGE = "NaN/Inf in loss or weights during training"
 
 @dataclasses.dataclass
 class TrainState:
-    """The trained net, its optimizer and the count of steps taken."""
+    """The trained net, its optimizer and the count of steps taken;
+    ``group`` is the process group of a data-parallel state (None: one
+    process)."""
 
     net: PolicyValueNet
     opt: torch.optim.Adam
     step: int = 0
+    group: object = None
 
     @property
     def device(self) -> torch.device:
         return next(self.net.parameters()).device
+
+
+def set_process_group(state: TrainState, group) -> TrainState:
+    """Make ``state`` data-parallel over ``group`` (see the module doc), or
+    single-process with None; a group of one rank is a single process."""
+    if group is not None and dist.get_world_size(group) == 1:
+        group = None
+    state.group = group
+    for m in state.net.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return state
+
+
+def _rank_world(state: TrainState):
+    if state.group is None:
+        return 0, 1
+    return dist.get_rank(state.group), dist.get_world_size(state.group)
 
 
 def make_optimizer(params, lr: float = 1e-3, wd: float = 1e-4) -> torch.optim.Adam:
@@ -87,25 +124,35 @@ def net_eval_fn(net: PolicyValueNet):
     return eval_fn
 
 
-def loss_fn(net: PolicyValueNet, obs, ps, outcome, weight):
+def loss_fn(net: PolicyValueNet, obs, ps, outcome, weight, n=None):
     """(loss, policy_loss, value_loss): CE(policy, ps) + MSE(value,
-    outcome), means over the weighted rows.  Runs the net in train mode,
-    so the BatchNorm running statistics are updated."""
+    outcome), weighted sums over the rows divided by ``n``, by default
+    these rows' weight sum (at least 1); a data-parallel step passes the
+    whole batch's.  Runs the net in train mode, so the BatchNorm running
+    statistics are updated."""
     logits, value = forward_train(net, obs)
-    n = weight.sum().clamp_min(1.0)
+    if n is None:
+        n = weight.sum().clamp_min(1.0)
     ce = -(ps * F.log_softmax(logits, dim=-1)).sum(-1)
     policy_loss = (ce * weight).sum() / n
     value_loss = (((value[:, 0] - outcome) ** 2) * weight).sum() / n
     return policy_loss + value_loss, policy_loss, value_loss
 
 
-def train_step(state: TrainState, obs, ps, outcome, weight):
+def train_step(state: TrainState, obs, ps, outcome, weight, n=None):
     """One Adam step on one batch, in place.  Returns (state, metrics) with
     the metrics as device scalars; ``nan`` flags a non-finite loss or
-    weight after the step."""
+    weight after the step.
+
+    Data-parallel (``state.group``): the rows are this rank's part of the
+    batch, ``n`` is the whole batch's weight sum, the gradients are summed
+    over the ranks, and the losses returned are this rank's parts of the
+    batch's (they sum to it)."""
     state.opt.zero_grad(set_to_none=True)
-    loss, pl, vl = loss_fn(state.net, obs, ps, outcome, weight)
+    loss, pl, vl = loss_fn(state.net, obs, ps, outcome, weight, n)
     loss.backward()
+    if state.group is not None:
+        _sum_grads(state)
     state.opt.step()
     state.step += 1
     with torch.no_grad():
@@ -113,6 +160,15 @@ def train_step(state: TrainState, obs, ps, outcome, weight):
         nan = ~torch.isfinite(loss) | ~torch.isfinite(peak).all()
     return state, {"loss": loss.detach(), "policy_loss": pl.detach(),
                    "value_loss": vl.detach(), "nan": nan}
+
+
+def _sum_grads(state: TrainState) -> None:
+    """Sum every parameter's gradient over the state's group, in one
+    collective."""
+    grads = [p.grad for p in state.net.parameters()]
+    flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), state.group)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
 
 
 def _densify(ps_idx, ps_val, num_actions: int):
@@ -124,11 +180,11 @@ def _densify(ps_idx, ps_val, num_actions: int):
 
 
 def train_step_compact(state: TrainState, obs_i8, ps_idx, ps_val, outcome, weight,
-                       num_actions: int):
+                       num_actions: int, n=None):
     """:func:`train_step` on compact inputs: int8 observations and sparse
     probability rows, densified on the device; the same math after that."""
     ps = _densify(ps_idx, ps_val, num_actions)
-    return train_step(state, obs_i8.float(), ps, outcome, weight)
+    return train_step(state, obs_i8.float(), ps, outcome, weight, n)
 
 
 def _obs_int8_exact(obs) -> bool:
@@ -173,8 +229,13 @@ def compact_memory(ps, obs):
 _AUTO_COMPACT = object()
 
 
-def _epoch_metrics(sums, nan, n_batches: int, metrics_out) -> None:
-    """One host sync per epoch: append the batch means and raise on NaN."""
+def _epoch_metrics(sums, nan, n_batches: int, metrics_out, group=None) -> None:
+    """One host sync per epoch: append the batch means and raise on NaN.
+    With a ``group``, the sums are this rank's parts and are summed over
+    the ranks first."""
+    if group is not None:
+        all_reduce_(sums, group)
+        all_reduce_(nan, group)
     loss, pl, vl = sums.tolist()
     nan = int(nan.item())
     if metrics_out is not None:
@@ -194,9 +255,10 @@ def train_epoch(state: TrainState, obs, ps, outcome, batch_size: int,
                 metrics_out: Optional[list] = None, compact=_AUTO_COMPACT,
                 perm=None) -> TrainState:
     """One shuffled pass over the host memory in fixed-size batches,
-    uploading each batch; the last partial batch is padded with wrapped
-    rows at zero weight.  Batches travel compact (int8 obs + sparse rows)
-    whenever the memory allows it; the math is the dense step's.
+    uploading each batch (data-parallel: this rank's part of it); the last
+    partial batch is padded with wrapped rows at zero weight.  Batches
+    travel compact (int8 obs + sparse rows) whenever the memory allows it;
+    the math is the dense step's.
 
     ``perm`` (numpy [N]) is injectable for tests; by default it is drawn
     from ``gen``, a generator on the state's device."""
@@ -207,6 +269,7 @@ def train_epoch(state: TrainState, obs, ps, outcome, batch_size: int,
         compact = compact_memory(ps, obs)
     if perm is None:
         perm = torch.randperm(n, generator=gen, device=gen.device).cpu().numpy()
+    mine = batch_slice(batch_size, *_rank_world(state))
     sums = torch.zeros(3, dtype=torch.float32, device=dev)
     nan = torch.zeros((), dtype=torch.int32, device=dev)
     n_batches = 0
@@ -219,6 +282,8 @@ def train_epoch(state: TrainState, obs, ps, outcome, batch_size: int,
             pad = batch_size - len(idx)
             idx = np.concatenate([idx, perm[np.arange(pad) % n]])
             w = np.concatenate([w, np.zeros(pad, np.float32)])
+        n_w = torch.tensor(max(float(w.sum()), 1.0), device=dev)
+        idx, w = idx[mine], w[mine]
         if compact is not None:
             obs_i8, ps_idx, ps_val = compact
             batch = (obs_i8[idx], ps_idx[idx].astype(np.int32), ps_val[idx],
@@ -227,13 +292,13 @@ def train_epoch(state: TrainState, obs, ps, outcome, batch_size: int,
             batch = (obs[idx], ps[idx], outcome[idx], w)
         batch = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in batch)
         if compact is not None:
-            state, m = train_step_compact(state, *batch, num_actions=num_actions)
+            state, m = train_step_compact(state, *batch, num_actions=num_actions, n=n_w)
         else:
-            state, m = train_step(state, *batch)
+            state, m = train_step(state, *batch, n_w)
         _accumulate(sums, nan, m)
         n_batches += 1
     if n_batches:
-        _epoch_metrics(sums, nan, n_batches, metrics_out)
+        _epoch_metrics(sums, nan, n_batches, metrics_out, state.group)
     return state
 
 
@@ -287,6 +352,8 @@ def train_epoch_device(state: TrainState, data: EpochData, batch_size: int,
     of the padded rows, then ``padded_rows / batch_size`` steps, each on
     the rows it gathers, at weight 0 for padding rows.  Each real row
     trains once an epoch, and each batch's loss means over its real rows.
+    Data-parallel (``state.group``), each rank steps on its contiguous part
+    of every batch (``gen`` must draw the same permutation on every rank).
 
     ``perm`` (a [Np] tensor on the device) is injectable for tests; by
     default it is drawn from ``gen``, a generator on the device."""
@@ -295,14 +362,17 @@ def train_epoch_device(state: TrainState, data: EpochData, batch_size: int,
     total_batches = n_pad // batch_size
     if perm is None:
         perm = torch.randperm(n_pad, generator=gen, device=dev)
+    mine = batch_slice(batch_size, *_rank_world(state))
     sums = torch.zeros(3, dtype=torch.float32, device=dev)
     nan = torch.zeros((), dtype=torch.int32, device=dev)
     for j in range(total_batches):
         rows = perm[j * batch_size:(j + 1) * batch_size]
         w = (rows < data.n).to(torch.float32)
+        n = w.sum().clamp_min(1.0)
+        rows, w = rows[mine], w[mine]
         ps = _densify(data.ps_idx[rows], data.ps_val[rows], data.num_actions)
         state, m = train_step(state, data.obs[rows].float(), ps,
-                              data.outcome[rows], w)
+                              data.outcome[rows], w, n)
         _accumulate(sums, nan, m)
-    _epoch_metrics(sums, nan, total_batches, metrics_out)
+    _epoch_metrics(sums, nan, total_batches, metrics_out, state.group)
     return state

@@ -44,7 +44,7 @@ def test_cpu_rehearsal_runs_every_phase_without_jax():
               "--filters", "8", "--blocks", "1"])
     assert p.returncode == 0, p.stdout + p.stderr
     for phase in ("device:", "build:", "kernels:", "reference:", "self-play:", "learn:",
-                  "mcts:", "done:"):
+                  "mcts:", "compaction:", "learn2:", "done:"):
         assert phase in p.stdout, phase
     assert '"ok"' not in p.stdout  # no result line off the card
     # the learn phase: its checks passed, and it left its artifacts
@@ -78,6 +78,25 @@ def test_cpu_rehearsal_runs_every_phase_without_jax():
         assert (rec["game"], rec["player1"], rec["player2"]) == ("backgammon", "mcts", "random")
         assert len(rec["turns"]) == 2
     shutil.rmtree(mcts_dir)
+    # the compaction phase: compacted tic-tac-toe self-play and arena, their
+    # semantics checked, and the uncompacted self-play beside it
+    comp = p.stdout.split("compaction: ", 1)[1]
+    assert "with compaction on the cpu (rehearsal): 9 rounds" in comp
+    assert "without compaction on the cpu (rehearsal): 9 rounds" in comp
+    assert "its fragments and winner on its own game id" in comp
+    assert ", 2 x" in comp.split("without compaction", 1)[0]  # the batch shrank to 2
+    assert "all 4 records replay to their winners" in comp
+    shutil.rmtree(Path(comp.split("; in ", 1)[1].split()[0]))
+    # the 2-process learn phase: the data-parallel step against one
+    # process, identical losses, process 0 alone writing
+    learn2 = p.stdout.split("learn2: ", 1)[1]
+    assert "2-process train step (32x2, batch 64 as 2 x 32" in learn2
+    assert "identical on both; only process 0 gated (best_kept, 100 draws)" in learn2
+    run2 = Path(learn2.split("; in ", 1)[1].split()[0])
+    assert (run2 / "metrics.jsonl.p1").exists()
+    assert json.loads((run2 / "models" / "backgammon" / "latest_meta.json").read_text()
+                      )["next_learn_iter"] == 1
+    shutil.rmtree(run2)
 
 
 def test_default_run_without_a_card_fails_without_result():
