@@ -67,7 +67,31 @@ Phases, each reported on one flushed line with the elapsed seconds:
    each kernel's launches at B = 512 on both processes, and both kernels
    bit for bit at the shapes they launched on; it prints each process's
    wall time by stage and the data-parallel step's time;
-10. the kernel table as one JSON line, then the result line
+10. ladder: the port's ``strength_ladder`` on the learn phase's ``best``
+   at full width (256x19, 100 simulations a move), rungs random and
+   mcts16 (4-step playouts), 32 games in one block, cut to 2 rounds (of
+   300); then the same command again with its ``--resume-state``, which
+   must play nothing and change no file;
+11. elo: the port's ``elo_tournament`` between the learn phase's ``best``
+   and ``model_1`` and the random anchor, 16 games a pair, cut to 2
+   rounds; then again on its cached matches, which must play nothing,
+   load no model and give identical ratings;
+12. ttt-learn: the port's ``ttt_learning_check`` cut to 2 learn
+   iterations (of 24) of 1 self-play run of 256 games (64 simulations, a
+   128-game gate, the 400-game final arena against random); it prints the
+   non-loss rate without gating on it;
+13. bg-demo: the port's ``bg_learning_demo`` at full width cut to 2 learn
+   iterations of 2 self-play rounds, so that the second plays the 64-game
+   gate, and to 2 rounds of gate and final arena;
+14. parity: the port's ``parity_sweep``, 2048 seeded backgammon games on
+   the card played to their end (at most 1500 steps) against the C++
+   oracle, zero mismatches;
+   in phases 10-13 each match's launches are set to 0 just before it and
+   read just after, and must equal what its PUCT and pure-rollout
+   searches predict; both kernels are then held bit for bit at every
+   shape the phase launched them on;
+15. the kernel table as one JSON line (``launches`` summed over every
+   path, ``launches_by_path`` by path), then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase makes the script exit non-zero without the result line;
@@ -81,12 +105,14 @@ Usage (from the root of a checkout):
     python3 chip_smoke.py                       # on the card, as above
     python3 chip_smoke.py --device cpu --games 4 --iterations 4 \\
         --filters 8 --blocks 1                  # CPU rehearsal, no result
+        [--phases port|strength|learning]       # ... of phases 1-9, 6 and 10-11, or 12-14
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -99,6 +125,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BUDGET_S = 600.0      # the whole run, build included
 CONFIG = os.path.join(ROOT, "configs", "bg_full.toml")
 ROUNDS = 2            # the one cut: self-play rounds (of the config's round limit)
+# a CPU rehearsal's parts (the card runs "all"): the port's phases 1-9; the
+# learn phase, whose checkpoints the ladder and the tournament play, and
+# those two; the learning checks and the parity sweep
+PARTS = {"all": ("port", "learn", "ladder", "elo", "ttt-learn", "bg-demo", "parity"),
+         "port": ("port", "learn"), "strength": ("learn", "ladder", "elo"),
+         "learning": ("ttt-learn", "bg-demo", "parity")}
 # the learn phase's cuts of configs/bg_full.toml (widths stay as they are)
 LEARN_CUTS = {"learn_iterations": 2, "self_play_iterations": 1,
               "simulate_round_limit": 2, "arena_num_games": 100,
@@ -139,21 +171,41 @@ def parse_args(argv):
     p.add_argument("--iterations", type=int, default=None)
     p.add_argument("--filters", type=int, default=None)
     p.add_argument("--blocks", type=int, default=None)
+    # a CPU rehearsal in parts: phases 1-9, the learn phase and 10-11, or 12-14
+    p.add_argument("--phases", default="all", choices=sorted(PARTS))
     # one process of the 2-process learn phase (the script starts these)
     p.add_argument("--rank-worker", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--run-dir", default=None, help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
-def _spec(args):
-    """Backgammon's spec, at a CPU rehearsal's smaller width if asked."""
+def _spec(args, game=None):
+    """A game's spec (backgammon's by default), at a CPU rehearsal's
+    smaller width if asked."""
     from die_e_tpu_torch.envs import backgammon as bg
 
+    spec = (game or bg).SPEC
     return dataclasses.replace(
-        bg.SPEC,
-        n_filters=args.filters or bg.SPEC.n_filters,
-        n_res_blocks=args.blocks if args.blocks is not None else bg.SPEC.n_res_blocks,
+        spec,
+        n_filters=args.filters or spec.n_filters,
+        n_res_blocks=args.blocks if args.blocks is not None else spec.n_res_blocks,
     )
+
+
+@contextlib.contextmanager
+def _game_at(spec, game=None):
+    """A game's module (backgammon's by default), which the CLI and the
+    scripts read, with ``spec`` in it for the block: a CPU rehearsal's
+    smaller net; nothing changes at full width."""
+    from die_e_tpu_torch.envs import backgammon as bg
+
+    game = game or bg
+    saved = game.SPEC, game.ENV
+    game.SPEC, game.ENV = spec, dataclasses.replace(game.ENV, spec=spec)
+    try:
+        yield
+    finally:
+        game.SPEC, game.ENV = saved
 
 
 # ---------------------------------------------------------------------------
@@ -816,7 +868,6 @@ def phase_learn(dev, spec, games, iterations, seed):
     """The port's CLI ``learn``, then ``learn --resume``; returns the
     kernels' launches by path, their launch shapes and the run's
     directory."""
-    import contextlib
     import json as json_
 
     import numpy as np
@@ -824,7 +875,6 @@ def phase_learn(dev, spec, games, iterations, seed):
 
     from die_e_tpu_torch.cli import main as cli
     from die_e_tpu_torch.core.config import load_config
-    from die_e_tpu_torch.envs import backgammon as bg
     from die_e_tpu_torch.nets.resnet import forward
     from die_e_tpu_torch.train import checkpoint as ckpt
     from die_e_tpu_torch.train.learner import create_train_state, train_step
@@ -840,10 +890,7 @@ def phase_learn(dev, spec, games, iterations, seed):
             "--metrics-jsonl", jsonl]
     cwd = os.getcwd()
     with contextlib.ExitStack() as stack:
-        if spec != bg.SPEC:  # a CPU rehearsal's smaller net
-            for name, value in (("SPEC", spec), ("ENV", dataclasses.replace(bg.ENV, spec=spec))):
-                stack.callback(setattr, bg, name, getattr(bg, name))
-                setattr(bg, name, value)
+        stack.enter_context(_game_at(spec))
         taps = stack.enter_context(_Taps(dev, iterations))
         stack.callback(os.chdir, cwd)
         os.chdir(run_dir)
@@ -947,7 +994,6 @@ def phase_mcts(dev, games, iterations, seed, card) -> dict:
     --no-wait`` of one recorded game; returns the kernels' launches on the
     match.  ``card`` is the card's name and power limit, printed beside
     the times."""
-    import contextlib
     import io
 
     import torch
@@ -1027,11 +1073,7 @@ def phase_mcts(dev, games, iterations, seed, card) -> dict:
         raise AssertionError("the replay did not re-apply every recorded turn:\n" + text)
     if not bool(bg.validate_state(taps["final"]).all()):
         raise AssertionError("the replay's last board fails validate_state")
-    # one gather per iteration (the expansion's legal row); one scatter per
-    # iteration and per search (the new node's and the root's rows)
-    _check_launches(dev, "mcts_arena", launches,
-                    {"gather_rows": res.mcts_searches * iterations,
-                     "scatter_rows": res.mcts_searches * (iterations + 1)})
+    _check_launches(dev, "mcts_arena", launches, _match_launches(res, iterations))
     say("mcts", f"tally {tally['Wins Player 1']}/{tally['Wins Player 2']}/{tally['Draws']} "
         f"(mcts/random/draws) of {games}, {len(recs)} records whose winners agree; replay of "
         f"{recs[0].id} re-applied {n_turns} turns, last board valid")
@@ -1053,12 +1095,13 @@ def _check_kernels_at(dev, shapes, seed, phase) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     max_err = {"gather_rows": 0.0, "scatter_rows": 0.0}
-    for b, n, length in sorted({k[1:] for k in shapes}, reverse=True):
+    stores = sorted({k[1:] for k in shapes}, reverse=True)
+    for b, n, length in stores:
         _row_check(dev, gen, b, n, length, b >= 3, max_err)
     if shapes:
-        say(phase, "gather and scatter equal their plain versions bit for bit at B = "
-            + ", ".join(str(b) for b in sorted({k[1] for k in shapes}, reverse=True))
-            + f" ([B, {n}, {length}], false mask rows where B >= 3)")
+        say(phase, "gather and scatter equal their plain versions bit for bit at [B, N, L] = "
+            + ", ".join(f"[{b}, {n}, {length}]" for b, n, length in stores)
+            + " (false mask rows where B >= 3)")
     return max_err
 
 
@@ -1105,7 +1148,6 @@ def phase_compaction(dev, cfg, games, iterations, seed, card):
     the wall time), then the CLI's ``play -1 mcts -2 random
     --compact-arena -o``; returns the kernels' launches by path and their
     launch shapes."""
-    import contextlib
     import io
 
     import torch
@@ -1218,8 +1260,7 @@ def phase_compaction(dev, cfg, games, iterations, seed, card):
     if len(recs) != games or [r.winner for r in recs].count("mcts") != res.wins_p1:
         raise AssertionError(f"{len(recs)} records, tally {res.wins_p1}")
     _check_launches(dev, "compaction_arena", launches["compaction_arena"],
-                    {"gather_rows": res.mcts_searches * iterations,
-                     "scatter_rows": res.mcts_searches * (iterations + 1)})
+                    _match_launches(res, iterations))
     say("compaction", f"on {card}: {res.rounds} rounds in {wall:.2f}s, batches "
         f"{_batches(seen)}, tally {res.wins_p1}/{res.wins_p2}/{res.draws} (mcts/random/draws) "
         f"of {games}; all {games} records replay to their winners; launches " + ", ".join(
@@ -1320,8 +1361,6 @@ def rank_worker(args) -> int:
     check, then the CLI's ``learn`` as process ``args.rank_worker`` of 2,
     with the learn phase's taps; writes ``rank{i}.json`` into the run
     directory."""
-    import contextlib
-
     import torch
 
     from die_e_tpu_torch.cli import main as cli
@@ -1340,10 +1379,7 @@ def rank_worker(args) -> int:
 
     iterations = args.iterations or load_config(CONFIG).mcts.iterations
     with contextlib.ExitStack() as stack:
-        if spec != bg.SPEC:  # a CPU rehearsal's smaller net
-            for name, value in (("SPEC", spec), ("ENV", dataclasses.replace(bg.ENV, spec=spec))):
-                stack.callback(setattr, bg, name, getattr(bg, name))
-                setattr(bg, name, value)
+        stack.enter_context(_game_at(spec))
         taps = stack.enter_context(_Taps(dev, iterations))
         os.chdir(run_dir)
         rc = cli.main(["--device", args.device, "--seed", str(args.seed), "-g", "backgammon",
@@ -1458,6 +1494,341 @@ def phase_learn_2proc(dev, spec, games, iterations, seed, learn_dir, argv):
     return launches, shapes
 
 
+# ---------------------------------------------------------------------------
+# the strength and learning checks (die_e_tpu_torch/scripts/)
+# ---------------------------------------------------------------------------
+
+LADDER_RUNGS = "random,mcts16"  # the model-vs-mcts rung: 16 iterations a move, trees [B, 17, L]
+LADDER_GAMES, ELO_GAMES = 32, 16
+SCRIPT_ROUNDS = 2  # the ladder's and tournament's round limit (of 300); the bg demo's (of 160/200)
+PARITY_GAMES, PARITY_STEPS = 2048, 1500
+
+
+def _run_dir(name) -> str:
+    path = os.path.join(ROOT, "build", f"{name}-{os.getpid()}-{int(time.time())}")
+    os.makedirs(path)
+    return path
+
+
+def _run_main(main_fn, argv, **kw):
+    """(exit code, stdout, stderr) of a script's ``main`` run in-process."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main_fn(argv, **kw)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _json_rows(text, metric) -> list:
+    return [r for r in (json.loads(line) for line in text.splitlines() if line.startswith("{"))
+            if r.get("metric") == metric]
+
+
+def _match_launches(res, iterations, mcts_iterations=None) -> dict:
+    """What one match's searches launch: the model's PUCT searches, one a
+    round whenever a model plays (:func:`_puct_launches`), plus the
+    pure-rollout searches (``mcts_iterations`` a move, by default
+    ``iterations``), one gather per iteration and one scatter per
+    iteration and per search."""
+    from die_e_tpu_torch.arena.versus import Agent
+
+    puct = res.rounds if Agent.MODEL in (res.player1, res.player2) else 0
+    n = iterations if mcts_iterations is None else mcts_iterations
+    want = _puct_launches(res.levels, puct, iterations)
+    return {"gather_rows": want["gather_rows"] + res.mcts_searches * n,
+            "scatter_rows": want["scatter_rows"] + res.mcts_searches * (n + 1)}
+
+
+class _MatchTaps:
+    """Wrap ``play`` as ``modules`` name it: each match's kernel launches
+    are set to 0 just before it and read just after, checked against
+    :func:`_match_launches`, and summed by path (``path(p1, p2, kw)``
+    names it); each match's path, result and wall time are kept.  Restores
+    the modules on exit."""
+
+    def __init__(self, dev, path, *modules):
+        self.dev, self.path, self.modules = dev, path, modules
+        self.launches, self.shapes, self.matches = {}, {}, []
+        self._real = []
+
+    def __enter__(self):
+        for mod in self.modules:
+            self._real.append((mod, mod.play))
+            mod.play = lambda *a, _real=mod.play, **kw: self._play(_real, *a, **kw)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, real in self._real:
+            mod.play = real
+
+    def _play(self, real, env, p1, p2, gen, cfg, **kw):
+        from die_e_tpu_torch.ops import rows as R
+
+        path = self.path(p1, p2, kw)
+        _sync(self.dev)
+        R.reset_launches()
+        t0 = time.perf_counter()
+        res = real(env, p1, p2, gen, cfg, **kw)
+        _sync(self.dev)
+        wall = time.perf_counter() - t0
+        got = dict(R.launches)
+        _check_launches(self.dev, path, got,
+                        _match_launches(res, cfg.iterations, kw.get("mcts_iterations")))
+        total = self.launches.setdefault(path, {k: 0 for k in got})
+        for k, v in got.items():
+            total[k] += v
+        self.shapes.setdefault(path, collections.Counter()).update(R.launch_shapes)
+        self.matches.append((path, res, wall))
+        return res
+
+
+def _launch_line(launches, dev) -> str:
+    return ", ".join(f"{k}={v}" for k, v in launches.items()) + (
+        " (equal what the searches predict)" if dev.type == "cuda" else "")
+
+
+def phase_ladder(dev, spec, learn_dir, iterations, games, seed, card):
+    """The port's strength ladder on the learn phase's ``best``: rungs
+    random and mcts16 in one block each, then the same command again with
+    its resume state; returns the kernels' launches by path and their
+    launch shapes."""
+    from die_e_tpu_torch.scripts import strength_ladder
+
+    run_dir = _run_dir("ladder")
+    out, state = os.path.join(run_dir, "ladder.jsonl"), os.path.join(run_dir, "state.json")
+    argv = ["--model-path", os.path.join(learn_dir, "models", "backgammon", "best"),
+            "--name", "best", "--rungs", LADDER_RUNGS, "--games", str(games),
+            "--block", str(games), "--sims", str(iterations), "--rollout-limit", "4",
+            "--round-limit", str(SCRIPT_ROUNDS), "--seed", str(seed), "--out", out,
+            "--resume-state", state, "--device", dev.type]
+    say("ladder", f"strength_ladder on the learn phase's best (net {spec.n_filters}x"
+        f"{spec.n_res_blocks}, {iterations} simulations a move), rungs {LADDER_RUNGS}, "
+        f"{games} games in one block, 4-step playouts, cut to {SCRIPT_ROUNDS} rounds (of 300); "
+        f"then again with its --resume-state; in {run_dir}")
+
+    def path(p1, p2, kw):
+        return f"ladder_model_vs_{p2.kind.value}{kw.get('mcts_iterations') or ''}"
+
+    with _game_at(spec), _MatchTaps(dev, path, strength_ladder) as taps:
+        rc, text, _ = _run_main(strength_ladder.main, argv)
+        played = list(taps.matches)
+        saved = open(state).read(), open(out).read()
+        rc2, text2, err2 = _run_main(strength_ladder.main, argv)
+    rows = _json_rows(text, "strength_ladder")
+    if rc != 0 or [(r["rung"], r["games"], r["wins"] + r["losses"] + r["draws"]) for r in rows] \
+            != [(rung, games, games) for rung in LADDER_RUNGS.split(",")]:
+        raise AssertionError(f"ladder rc {rc}, rows {rows}")
+    if rows[1]["rollout_limit"] != 4 or any(
+            (r["model_sims"], r["round_limit"]) != (iterations, SCRIPT_ROUNDS) for r in rows):
+        raise AssertionError(f"ladder rows {rows}")
+    mcts = [res for p, res, _ in played if "mcts" in p]
+    if len(played) != 2 or len(mcts) != 1 or mcts[0].mcts_searches != mcts[0].rounds:
+        raise AssertionError(f"ladder matches {played}")
+    # the resumed run plays nothing, skips both rungs and changes no file
+    skips = _json_rows(err2, "ladder_skip")
+    if rc2 != 0 or len(taps.matches) != 2 or _json_rows(text2, "strength_ladder") or [
+            r["rung"] for r in skips] != LADDER_RUNGS.split(",") or saved != (
+            open(state).read(), open(out).read()):
+        raise AssertionError(f"the resumed ladder played or wrote: rc {rc2}, {text2}, {err2}")
+    for (p, res, wall), row in zip(played, rows):
+        say("ladder", f"rung {row['rung']}: {row['wins']}/{row['losses']}/{row['draws']} "
+            f"(wins/losses/draws) of {row['games']}, verdict {row['verdict']}; on {card}: "
+            f"{res.rounds} moves in {wall:.2f}s, {wall / max(res.rounds, 1):.3f} s a move; "
+            f"launches {_launch_line(taps.launches[p], dev)}")
+    say("ladder", "the relaunch with --resume-state played nothing: a ladder_skip line for "
+        f"{', '.join(r['rung'] for r in skips)}, state and rows unchanged: "
+        + json.dumps([{k: r[k] for k in ("rung", "games", "wins", "losses", "draws")}
+                      for r in _json_rows(open(out).read(), "strength_ladder")]))
+    return taps.launches, taps.shapes
+
+
+def phase_elo(dev, spec, learn_dir, iterations, games, seed, card):
+    """The port's Elo tournament between the learn phase's ``best`` and
+    ``model_1`` and the random anchor, then again on the cached matches;
+    returns the kernels' launches by path and their launch shapes."""
+    from die_e_tpu_torch.arena.versus import Agent
+    from die_e_tpu_torch.scripts import elo_tournament
+    from die_e_tpu_torch.train import checkpoint as ckpt
+
+    run_dir = _run_dir("elo")
+    out = os.path.join(run_dir, "elo.jsonl")
+    mdir = os.path.join(learn_dir, "models", "backgammon")
+    argv = ["--models", f"best={mdir}/best,model_1={mdir}/model_1", "--anchors", "random",
+            "--games", str(games), "--sims", str(iterations),
+            "--round-limit", str(SCRIPT_ROUNDS), "--seed", str(seed), "--out", out,
+            "--device", dev.type]
+    say("elo", f"elo_tournament: the learn phase's best and model_1 (net {spec.n_filters}x"
+        f"{spec.n_res_blocks}, {iterations} simulations a move) and the random anchor, "
+        f"{games} games a pair, cut to {SCRIPT_ROUNDS} rounds (of 300); then again on its "
+        f"cached matches; in {run_dir}")
+    loads, real_load = [], ckpt.load_net
+
+    def load_net(path, *a, **kw):
+        loads.append(path)
+        return real_load(path, *a, **kw)
+
+    def path(p1, p2, kw):
+        return "elo_model_vs_" + ("model" if p2.kind == Agent.MODEL else p2.kind.value)
+
+    ckpt.load_net = load_net
+    try:
+        with _game_at(spec), _MatchTaps(dev, path, elo_tournament) as taps:
+            rc, text, _ = _run_main(elo_tournament.main, argv)
+            ratings = open(os.path.splitext(out)[0] + ".ratings.json").read()
+            n_loads = len(loads)
+            rc2, text2, _ = _run_main(elo_tournament.main, argv)
+    finally:
+        ckpt.load_net = real_load
+    matches = _json_rows(text, "elo_match")
+    (summary,) = _json_rows(text, "elo_ratings")
+    pairs = [(m["player_a"], m["player_b"]) for m in matches]
+    if rc != 0 or pairs != [("best", "model_1"), ("best", "random"), ("model_1", "random")] or any(
+            m["wins_a"] + m["wins_b"] + m["draws"] != games for m in matches) or n_loads != 2:
+        raise AssertionError(f"tournament rc {rc}, matches {matches}, {n_loads} models loaded")
+    if summary["anchor"] != "random" or set(summary["ratings"]) != {"best", "model_1", "random"}:
+        raise AssertionError(f"ratings {summary}")
+    if rc2 != 0 or len(taps.matches) != 3 or _json_rows(text2, "elo_match") or len(loads) != 2 \
+            or _json_rows(text2, "elo_ratings") != [summary] or open(
+            os.path.splitext(out)[0] + ".ratings.json").read() != ratings:
+        raise AssertionError(f"the cached tournament played, loaded or rated anew: {text2}")
+    for (p, res, wall), m in zip(taps.matches, matches):
+        say("elo", f"{m['player_a']} against {m['player_b']}: {m['wins_a']}/{m['wins_b']}/"
+            f"{m['draws']} of {games}; on {card}: {res.rounds} moves in {wall:.2f}s, "
+            f"{wall / max(res.rounds, 1):.3f} s a move")
+    for p, launches in taps.launches.items():
+        say("elo", f"{p}: launches {_launch_line(launches, dev)}")
+    say("elo", f"ratings {json.dumps(summary['ratings'])}, ci95 {json.dumps(summary['ci95'])}; "
+        "the cached re-run played nothing, loaded no model, and gave identical ratings")
+    return taps.launches, taps.shapes
+
+
+def _learn_check_taps(taps, final, prefix):
+    """The learn loop's and the final match's launches and shapes under
+    ``prefix`` names."""
+    launches, shapes = {}, {}
+    for key, name in (("learn_self_play", "self_play"), ("learn_arena", "gate")):
+        if taps.launches[key]:
+            launches[f"{prefix}_{name}"] = taps.launches[key]
+            shapes[f"{prefix}_{name}"] = taps.shapes[key]
+    for p in final.launches:
+        launches[p], shapes[p] = final.launches[p], final.shapes[p]
+    return launches, shapes
+
+
+def _stage_line(taps, final) -> str:
+    (_, res, wall), = final.matches
+    return ", ".join(f"{k} {v:.3f}s" for k, v in taps.seconds.items()) + (
+        f"; final arena {res.rounds} moves in {wall:.2f}s, {wall / max(res.rounds, 1):.3f} s a "
+        f"move; {taps.steps} train steps")
+
+
+def _tally(text) -> dict:
+    return {k: int(text.split(f"{k}: ", 1)[1].split()[0])
+            for k in ("Wins Player 1", "Wins Player 2", "Draws", "Number of Games")}
+
+
+def phase_ttt_learn(dev, args, card):
+    """The port's tic-tac-toe exit check cut to 2 learn iterations of 1
+    self-play run (a CPU rehearsal also cuts its games, simulations and
+    net);
+    prints the non-loss rate without gating on it.  Returns the kernels'
+    launches by path and their launch shapes."""
+    from die_e_tpu_torch.envs import tictactoe as ttt
+    from die_e_tpu_torch.scripts import ttt_learning_check as check
+
+    spec = _spec(args, ttt)
+    run_dir = _run_dir("ttt-learn")
+    iterations = args.iterations or check.main.__kwdefaults__["iterations"]
+    games = args.games or check.main.__kwdefaults__["games"]
+    cuts = dict(learn_iterations=2, self_play_iterations=1)
+    say("ttt-learn", f"ttt_learning_check ({games} games a self-play run, {iterations} "
+        f"simulations a move, net {spec.n_filters}x{spec.n_res_blocks}, 128-game gates, then 400 "
+        "games against random) cut to "
+        + ", ".join(f"{k}={v}" for k, v in cuts.items()) + f" (of 24 and 2); in {run_dir}")
+    t0 = time.perf_counter()
+    with _game_at(spec, ttt), _Taps(dev, iterations) as taps, _MatchTaps(
+            dev, lambda *a: "ttt_final_arena", check) as final:
+        rc, text, _ = _run_main(check.main, [run_dir, "--device", dev.type],
+                                iterations=iterations, games=games, **cuts)
+    wall = time.perf_counter() - t0
+    tally = _tally(text)
+    rate = float(text.split("NON-LOSS RATE vs random: ", 1)[1].split()[0])
+    if rc not in (0, 1) or tally["Number of Games"] != 400 or rc != (0 if rate > 0.95 else 1) \
+            or abs(rate - (tally["Wins Player 1"] + tally["Draws"]) / 400) > 5e-4:
+        raise AssertionError(f"ttt_learning_check rc {rc}:\n{text}")
+    mdir = os.path.join(run_dir, "models", "tictactoe")
+    if not all(os.path.isdir(os.path.join(mdir, m)) for m in ("model_0", "model_1", "best")):
+        raise AssertionError(f"missing checkpoints in {mdir}")
+    launches, shapes = _learn_check_taps(taps, final, "ttt")
+    say("ttt-learn", f"on {card}: {wall:.2f}s; non-loss rate against random {rate:.3f} "
+        f"({tally['Wins Player 1']}/{tally['Wins Player 2']}/{tally['Draws']} of 400; the cut "
+        "run is not the exit check, which wants > 0.95 after 24 iterations); "
+        + _stage_line(taps, final))
+    for p, counts in launches.items():
+        say("ttt-learn", f"{p}: launches {_launch_line(counts, dev)}")
+    return launches, shapes
+
+
+def phase_bg_demo(dev, spec, args, card):
+    """The port's backgammon learning demo cut to 2 learn iterations of 2
+    self-play rounds, a 2-round gate and a 2-round final arena, at full width (a CPU
+    rehearsal also cuts its games, simulations and net); returns the
+    kernels' launches by path and their launch shapes."""
+    from die_e_tpu_torch.scripts import bg_learning_demo as demo
+
+    run_dir = _run_dir("bg-demo")
+    iterations = args.iterations or demo.main.__kwdefaults__["iterations"]
+    games = args.games or demo.main.__kwdefaults__["games"]
+    cuts = dict(learn_iterations=2, round_limit=SCRIPT_ROUNDS)
+    say("bg-demo", f"bg_learning_demo ({games} games a self-play run, {iterations} simulations "
+        f"a move, net {spec.n_filters}x{spec.n_res_blocks}, 64-game gates, then 128 games "
+        "against random) cut to " + ", ".join(f"{k}={v}" for k, v in cuts.items())
+        + f" (of 4, and 160/160/200 rounds); in {run_dir}")
+    t0 = time.perf_counter()
+    with _game_at(spec), _Taps(dev, iterations) as taps, _MatchTaps(
+            dev, lambda *a: "bg_final_arena", demo) as final:
+        rc, text, _ = _run_main(demo.main, [run_dir, "--device", dev.type],
+                                iterations=iterations, games=games, **cuts)
+    wall = time.perf_counter() - t0
+    tally = _tally(text)
+    if rc != 0 or "--- model vs random ---" not in text or tally["Number of Games"] != 128 or sum(
+            tally[k] for k in ("Wins Player 1", "Wins Player 2", "Draws")) != 128:
+        raise AssertionError(f"bg_learning_demo rc {rc}:\n{text}")
+    mdir = os.path.join(run_dir, "models", "backgammon")
+    if not all(os.path.isdir(os.path.join(mdir, m)) for m in ("model_0", "model_1", "best")):
+        raise AssertionError(f"missing checkpoints in {mdir}")
+    launches, shapes = _learn_check_taps(taps, final, "bg")
+    if "bg_gate" not in launches:
+        raise AssertionError("the second learn iteration played no gate match")
+    say("bg-demo", f"on {card}: {wall:.2f}s; model against random {tally['Wins Player 1']}/"
+        f"{tally['Wins Player 2']}/{tally['Draws']} of 128; " + _stage_line(taps, final))
+    for p, counts in launches.items():
+        say("bg-demo", f"{p}: launches {_launch_line(counts, dev)}")
+    return launches, shapes
+
+
+def phase_parity(dev, games, card) -> None:
+    """The port's parity sweep: ``games`` seeded backgammon games on the
+    device, played to their end or ``PARITY_STEPS``, against the C++
+    oracle; no mismatch allowed."""
+    from die_e_tpu_torch.scripts import parity_sweep
+
+    say("parity", f"parity_sweep: {games} seeded games, max_steps {PARITY_STEPS}, the k-th "
+        "legal action from the salted stream, against parity/oracle.py (built by g++ at first "
+        "use)")
+    t0 = time.perf_counter()
+    rc, text, _ = _run_main(parity_sweep.main, [str(games), str(PARITY_STEPS),
+                                                "--device", dev.type])
+    wall = time.perf_counter() - t0
+    line = text.strip().splitlines()[-1]
+    if rc != 0 or f"games={games} " not in line or " mismatches=0 " not in line:
+        raise AssertionError(f"parity sweep rc {rc}:\n{text}")
+    say("parity", f"on {card}: {line}; {wall:.2f}s in all; zero mismatches in action hashes, "
+        "winners and move counts")
+
+
+
 def _sync(dev) -> None:
     if dev.type == "cuda":
         import torch
@@ -1465,10 +1836,64 @@ def _sync(dev) -> None:
         torch.cuda.synchronize()
 
 
+def phase_port_rest(dev, args, cfg, spec, games, iterations, learn_dir, card, errs):
+    """Phases 7-9 (mcts, compaction, learn2); appends the kernels' errors at
+    their launch shapes to ``errs`` and returns their launches by path."""
+    mcts_launches = phase_mcts(dev, args.games or cfg.arena.num_games, iterations, args.seed,
+                               card)
+    check_budget("mcts")
+    compaction, compaction_shapes = phase_compaction(dev, cfg, games, iterations, args.seed,
+                                                     card)
+    errs.append(_check_kernels_at(dev, sum(compaction_shapes.values(), collections.Counter()),
+                                  args.seed, "compaction"))
+    check_budget("compaction")
+    rank_argv = ["--device", args.device, "--seed", str(args.seed)] + [
+        f"--{k}={getattr(args, k)}" for k in ("games", "iterations", "filters", "blocks")
+        if getattr(args, k) is not None]
+    learn2, learn2_shapes = phase_learn_2proc(dev, spec, games, iterations, args.seed,
+                                              learn_dir, rank_argv)
+    errs.append(_check_kernels_at(dev, sum(learn2_shapes.values(), collections.Counter()),
+                                  args.seed, "learn2"))
+    check_budget("learn2")
+    return {"mcts_arena": mcts_launches, **compaction, **learn2}
+
+
+CHECKS = ("ladder", "elo", "ttt-learn", "bg-demo", "parity")
+
+
+def phase_checks(dev, args, spec, iterations, learn_dir, card, errs, names):
+    """Phases 10-14, the strength and learning checks (those in
+    ``names``); appends the kernels' errors at their launch shapes to
+    ``errs`` and returns their launches by path."""
+    t_checks, checks = elapsed(), {}
+    runs = {"ladder": lambda: phase_ladder(dev, spec, learn_dir, iterations,
+                                           args.games or LADDER_GAMES, args.seed, card),
+            "elo": lambda: phase_elo(dev, spec, learn_dir, iterations,
+                                     args.games or ELO_GAMES, args.seed, card),
+            "ttt-learn": lambda: phase_ttt_learn(dev, args, card),
+            "bg-demo": lambda: phase_bg_demo(dev, spec, args, card)}
+    for phase in names:
+        if phase == "parity":
+            phase_parity(dev, args.games or PARITY_GAMES, card)
+        else:
+            by_check, shapes = runs[phase]()
+            checks.update(by_check)
+            errs.append(_check_kernels_at(dev, sum(shapes.values(), collections.Counter()),
+                                          args.seed, phase))
+        check_budget(phase)
+    say(names[-1], f"the {len(names)} phases of the strength and learning checks took "
+        f"{elapsed() - t_checks:.1f}s")
+    return checks
+
+
 def main(argv=None) -> int:
     args = parse_args(sys.argv[1:] if argv is None else argv)
     import torch
 
+    if args.device == "cuda" and args.phases != "all":
+        print("chip_smoke: --phases splits a CPU rehearsal; the card runs every phase",
+              file=sys.stderr, flush=True)
+        return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available (use --device cpu to rehearse)",
               file=sys.stderr, flush=True)
@@ -1496,42 +1921,34 @@ def main(argv=None) -> int:
     check_budget("device")
     phase_build(dev)
     check_budget("build")
-    mcts_games = args.games or cfg.arena.num_games
-    kernels = phase_kernels(dev, games, iterations + 1, pad_actions(spec.num_actions),
-                            mcts_games, args.seed)
-    check_budget("kernels")
-    phase_reference(dev, spec, games, iterations, args.seed)
-    check_budget("reference")
-    launches = phase_self_play(dev, cfg, spec, games, iterations, ROUNDS, args.seed)
-    check_budget("self-play")
-    by_path, _, learn_dir = phase_learn(dev, spec, games, iterations, args.seed)
-    check_budget("learn")
-    mcts_launches = phase_mcts(dev, mcts_games, iterations, args.seed, card)
-    check_budget("mcts")
-    compaction, compaction_shapes = phase_compaction(dev, cfg, games, iterations, args.seed,
-                                                     card)
-    errs = [_check_kernels_at(dev, sum(compaction_shapes.values(), collections.Counter()),
-                              args.seed, "compaction")]
-    check_budget("compaction")
-    rank_argv = ["--device", args.device, "--seed", str(args.seed)] + [
-        f"--{k}={getattr(args, k)}" for k in ("games", "iterations", "filters", "blocks")
-        if getattr(args, k) is not None]
-    learn2, learn2_shapes = phase_learn_2proc(dev, spec, games, iterations, args.seed,
-                                              learn_dir, rank_argv)
-    errs.append(_check_kernels_at(dev, sum(learn2_shapes.values(), collections.Counter()),
-                                  args.seed, "learn2"))
-    check_budget("learn2")
+    paths, errs, part = {}, [], PARTS[args.phases]
+    if "port" in part:
+        kernels = phase_kernels(dev, games, iterations + 1, pad_actions(spec.num_actions),
+                                args.games or cfg.arena.num_games, args.seed)
+        check_budget("kernels")
+        phase_reference(dev, spec, games, iterations, args.seed)
+        check_budget("reference")
+        paths["self_play"] = phase_self_play(dev, cfg, spec, games, iterations, ROUNDS,
+                                             args.seed)
+        check_budget("self-play")
+    learn_dir = None
+    if "learn" in part:
+        by_path, _, learn_dir = phase_learn(dev, spec, games, iterations, args.seed)
+        paths.update(by_path)
+        check_budget("learn")
+    if "port" in part:
+        paths.update(phase_port_rest(dev, args, cfg, spec, games, iterations, learn_dir, card,
+                                     errs))
+    names = tuple(n for n in CHECKS if n in part)
+    if names:
+        paths.update(phase_checks(dev, args, spec, iterations, learn_dir, card, errs, names))
     if dev.type != "cuda":
         say("done", "cpu rehearsal passed (no device numbers, no result line)")
         return 0
     for k in kernels:
         name = k["name"]
-        paths = {"self_play": launches[name],
-                 **{p: c[name] for p, c in {**by_path, **compaction, **learn2}.items()},
-                 "mcts_arena": mcts_launches[name]}
-        # the main path: the learn phase's self-play and arena
-        k["launches"] = by_path["learn_self_play"][name] + by_path["learn_arena"][name]
-        k["launches_by_path"] = paths
+        k["launches_by_path"] = {p: c[name] for p, c in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
         k["max_abs_err"] = max([k["max_abs_err"]] + [e[name] for e in errs])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],

@@ -37,7 +37,6 @@ def _get_env(name: str):
 
 def _agent(kind: str, model_path, env_mod, dev):
     from die_e_tpu_torch.arena.versus import Agent, Player
-    from die_e_tpu_torch.nets.resnet import PolicyValueNet
     from die_e_tpu_torch.train import checkpoint as ckpt
     from die_e_tpu_torch.train.learner import net_eval_fn
 
@@ -49,8 +48,7 @@ def _agent(kind: str, model_path, env_mod, dev):
         if not model_path and not path.exists():
             raise SystemExit(f"model agent requested but no model at {path}; "
                              "pass --model1-path/--model2-path")
-        net = ckpt.restore_variables(path, PolicyValueNet(env_mod.SPEC).to(dev))
-        return Player(Agent.MODEL, net_eval_fn(net))
+        return Player(Agent.MODEL, net_eval_fn(ckpt.load_net(path, env_mod.SPEC, dev)))
     raise SystemExit(f"unknown agent kind {kind!r} (random|mcts|model)")
 
 

@@ -4,10 +4,10 @@
 Same search, step for step, on the array tree of ``search/tree.py``: each
 iteration selects a leaf by UCB1, expands one child (the highest remaining
 legal action index, as the JAX package takes it), evaluates it by a
-uniformly random playout capped at ``simulate_round_limit`` steps, and
-backs the value up the path.  The final move is the root child with most visits
-(``most_visits``) or the best mean value (``win_pct``); a terminal root
-gives the noop.
+uniformly random playout capped at ``rollout_limit`` steps (by default
+``simulate_round_limit``), and backs the value up the path.  The final
+move is the root child with most visits (``most_visits``) or the best mean
+value (``win_pct``); a terminal root gives the noop.
 
 The JAX package's two documented fixes hold here too: the playout checks
 the winner of the evolving state each step, and the UCB1 exploitation
@@ -192,12 +192,14 @@ def simple_search_select(env, tree: Tree, selection: str = "most_visits"):
 
 
 def simple_search(env, states, gen: torch.Generator, iterations: int = 100, c: float = 2.0,
-                  simulate_round_limit: int = 400, selection: str = "most_visits"):
+                  simulate_round_limit: int = 400, selection: str = "most_visits",
+                  rollout_limit: int | None = None):
     """Pure-rollout MCTS over a batch of root states on their device, with
-    playouts capped at ``simulate_round_limit`` steps (a cut playout scores
-    0, like a draw at the round limit); returns (action [B] int32,
-    visit_probs [B, A])."""
+    playouts capped at ``rollout_limit`` steps, by default
+    ``simulate_round_limit`` (a cut playout scores 0, like a draw at the
+    round limit); returns (action [B] int32, visit_probs [B, A])."""
     if selection not in SELECTIONS:
         raise ValueError(f"unknown selection mode {selection!r}")
-    tree, _ = simple_search_tree(env, states, gen, iterations, c, simulate_round_limit)
+    limit = rollout_limit if rollout_limit is not None else simulate_round_limit
+    tree, _ = simple_search_tree(env, states, gen, iterations, c, limit)
     return simple_search_select(env, tree, selection)

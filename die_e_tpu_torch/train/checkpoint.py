@@ -26,6 +26,7 @@ from typing import Callable, Optional
 
 import torch
 
+from die_e_tpu_torch.nets.resnet import PolicyValueNet
 from die_e_tpu_torch.train.learner import TrainState
 
 VARIABLES_FILE = "variables.pt"
@@ -89,6 +90,12 @@ def restore_variables(path, net):
     """Load the variables at ``path`` into ``net`` in place."""
     net.load_state_dict(_read(path, VARIABLES_FILE))
     return net
+
+
+def load_net(path, spec, device) -> PolicyValueNet:
+    """A net of ``spec``'s width on ``device`` with the variables at
+    ``path``: a player's net in ``play``, the ladder and the tournament."""
+    return restore_variables(path, PolicyValueNet(spec).to(device))
 
 
 class AsyncSaver:

@@ -41,6 +41,7 @@ from die_e_tpu_torch.envs import tictactoe as tttt
 from die_e_tpu_torch.nets import resnet as tnet
 from die_e_tpu_torch.nets.convert import flax_to_state_dict
 from die_e_tpu_torch.search import alpha as talpha
+from die_e_tpu_torch.search import simple as tsimple
 from die_e_tpu_torch.train import checkpoint as tckpt
 from die_e_tpu_torch.train import gating as tg
 from die_e_tpu_torch.train.learner import net_eval_fn
@@ -233,8 +234,62 @@ def test_mcts_settings_reach_the_search(monkeypatch):
     res = tv.play(tttt.ENV, tv.Player(tv.Agent.MCTS), tv.Player(tv.Agent.MCTS),
                   torch.Generator().manual_seed(0), MCTS_CFG, num_games=4, round_limit=3)
     assert len(seen) == res.mcts_searches == res.rounds == 3
+    # without the overrides (None) the config's settings reach the search
     assert seen[0] == dict(iterations=MCTS_CFG.iterations, c=MCTS_CFG.c,
-                           simulate_round_limit=MCTS_CFG.simulate_round_limit)
+                           simulate_round_limit=MCTS_CFG.simulate_round_limit,
+                           rollout_limit=None)
+
+
+@pytest.mark.parametrize("path", ["plain", "recorded", "compacted"])
+def test_mcts_overrides_reach_the_pure_rollout_agent_only(monkeypatch, path):
+    """Model against mcts with ``mcts_iterations=5`` and
+    ``mcts_rollout_limit=2``: the mcts agent's tree has capacity 6 and its
+    playouts stop after 2 steps (playouts from tic-tac-toe's opening
+    cannot end sooner), while the model searches with the config's
+    iterations; on the recorded and the compacted path as on the plain
+    one."""
+    _, [(_, n1)] = _nets((3,))
+    trees, playouts, model_iters = [], [], []
+    real_tree, real_rollout, real_alpha = (tsimple.simple_search_tree, tsimple._rollout,
+                                           tv.alpha_search)
+
+    def tree_spy(*a, **k):
+        out = real_tree(*a, **k)
+        trees.append((out[0].capacity, out[0].batch_size))
+        return out
+
+    def rollout_spy(env, states, gen, player, sim_limit):
+        steps = []
+
+        def step(s, action):
+            steps.append(1)
+            return env.step(s, action)
+
+        out = real_rollout(dataclasses.replace(env, step=step), states, gen, player, sim_limit)
+        playouts.append(len(steps))
+        return out
+
+    def alpha_spy(env, eval_fn, states, gen, **kw):
+        model_iters.append(kw["iterations"])
+        return real_alpha(env, eval_fn, states, gen, **kw)
+
+    monkeypatch.setattr(tsimple, "simple_search_tree", tree_spy)
+    monkeypatch.setattr(tsimple, "_rollout", rollout_spy)
+    monkeypatch.setattr(tv, "alpha_search", alpha_spy)
+    res = tv.play(tttt.ENV, tv.Player(tv.Agent.MODEL, net_eval_fn(n1)),
+                  tv.Player(tv.Agent.MCTS), torch.Generator().manual_seed(0), MCTS_CFG,
+                  num_games=8, round_limit=9, record=path == "recorded",
+                  compact=path == "compacted", min_batch=2,
+                  mcts_iterations=5, mcts_rollout_limit=2)
+    assert res.wins_p1 + res.wins_p2 + res.draws == 8
+    assert len(trees) == res.mcts_searches == res.rounds == len(model_iters) > 0
+    assert {cap for cap, _ in trees} == {6}
+    assert min(b for _, b in trees) < 8 if path == "compacted" else {b for _, b in trees} == {8}
+    assert len(playouts) == 5 * res.mcts_searches
+    assert max(playouts) == 2
+    assert set(model_iters) == {MCTS_CFG.iterations}
+    if path == "recorded":
+        assert len(res.games) == 8
 
 
 @pytest.mark.parametrize("negamax", [False, True])

@@ -2,8 +2,10 @@
 
 That machine has PyTorch but no JAX, flax, optax or orbax, and the JAX
 package is not to be imported there.  The CPU rehearsal runs every phase
-of ``chip_smoke.py`` at a tiny size in a subprocess where those are
-unimportable; without a card the script's default run must fail without
+of ``chip_smoke.py`` at a tiny size in subprocesses where those are
+unimportable (in three parts, each with its own time limit: the port's
+phases 1-9; the learn phase with the ladder and the tournament; the
+learning checks and the parity sweep); without a card the script's default run must fail without
 its result line, and so must a copy of the script alone.
 """
 
@@ -39,13 +41,19 @@ def _run(argv, cwd=ROOT, blocked=True, script=None):
                           timeout=300)
 
 
+REHEARSAL = ["--device", "cpu", "--games", "4", "--iterations", "4", "--filters", "8",
+             "--blocks", "1"]
+
+
 def test_cpu_rehearsal_runs_every_phase_without_jax():
-    p = _run(["--device", "cpu", "--games", "4", "--iterations", "4",
-              "--filters", "8", "--blocks", "1"])
+    """Phases 1-9; 10-14 in the next two tests."""
+    p = _run([*REHEARSAL, "--phases", "port"])
     assert p.returncode == 0, p.stdout + p.stderr
     for phase in ("device:", "build:", "kernels:", "reference:", "self-play:", "learn:",
                   "mcts:", "compaction:", "learn2:", "done:"):
         assert phase in p.stdout, phase
+    for phase in ("ladder:", "elo:", "ttt-learn:", "bg-demo:", "parity:"):
+        assert phase not in p.stdout, phase
     assert '"ok"' not in p.stdout  # no result line off the card
     # the learn phase: its checks passed, and it left its artifacts
     assert "one train step (32x2" in p.stdout
@@ -97,6 +105,53 @@ def test_cpu_rehearsal_runs_every_phase_without_jax():
     assert json.loads((run2 / "models" / "backgammon" / "latest_meta.json").read_text()
                       )["next_learn_iter"] == 1
     shutil.rmtree(run2)
+
+
+def _rehearse_part(part):
+    p = _run([*REHEARSAL, "--phases", part])
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert '"ok"' not in p.stdout
+    phases = {"strength": ("learn", "ladder", "elo"),
+              "learning": ("ttt-learn", "bg-demo", "parity")}[part]
+    for phase in ("device", "build", *phases, "done"):
+        assert f"] {phase}: " in p.stdout, phase
+    for phase in ("kernels", "reference", "self-play", "mcts", "compaction", "learn2",
+                  "ladder", "elo", "ttt-learn", "bg-demo", "parity", "learn"):
+        if phase not in phases:
+            assert f"] {phase}: " not in p.stdout, phase
+    return p
+
+
+def test_cpu_rehearsal_runs_the_ladder_and_the_tournament():
+    """The learn phase, whose checkpoints they play, then phases 10-11:
+    the ladder's two rungs and its resume that plays nothing, the
+    tournament and its cached re-run."""
+    p = _rehearse_part("strength")
+    ladder = p.stdout.split("ladder: ", 1)[1]
+    assert "rung random: " in ladder and "rung mcts16: " in ladder
+    assert "--resume-state played nothing: a ladder_skip line for random, mcts16" in ladder
+    elo = p.stdout.split("elo: ", 1)[1]
+    for pair in ("best against model_1", "best against random", "model_1 against random"):
+        assert pair in elo
+    assert "the cached re-run played nothing, loaded no model, and gave identical ratings" in elo
+    for phase in (p.stdout.split("learn: ", 1)[1], ladder, elo):
+        shutil.rmtree(Path(phase.split("; in ", 1)[1].split()[0]))
+
+
+def test_cpu_rehearsal_runs_the_learning_checks_and_the_parity_sweep():
+    """Phases 12-14: the cut learning checks (the backgammon demo's second
+    iteration gating) and the parity sweep."""
+    p = _rehearse_part("learning")
+    ttt = p.stdout.split("ttt-learn: ", 1)[1]
+    assert "non-loss rate against random" in ttt and "of 400;" in ttt
+    assert "ttt_final_arena: launches" in ttt
+    demo = p.stdout.split("bg-demo: ", 1)[1]
+    assert "model against random 0/0/128 of 128" in demo  # 2 rounds end no game
+    assert "bg_gate: launches" in demo
+    parity = p.stdout.split("parity: ", 1)[1]
+    assert "games=4 max_steps=1500 finished=4 " in parity and "mismatches=0 " in parity
+    for phase in (ttt, demo):
+        shutil.rmtree(Path(phase.split("; in ", 1)[1].split()[0]))
 
 
 def test_default_run_without_a_card_fails_without_result():

@@ -14,6 +14,8 @@ Backgammon runs at one shape (8 games, 16 iterations) so that the JAX
 search compiles once in this file.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -168,6 +170,66 @@ def test_rollout_values_and_limit():
     for _ in range(20):  # a 9-step playout always ends a tic-tac-toe game
         v = tsimple._rollout(tttt.ENV, s, gen, player, 9)
         assert v[:3].tolist() == [1.0, -1.0, 0.0] and v[3].item() in (-1.0, 0.0, 1.0)
+
+
+@pytest.mark.parametrize("selection", tsimple.SELECTIONS)
+def test_rollout_limit_zero_matches_jax_simple_search(monkeypatch, selection):
+    """``simple_search`` with ``rollout_limit=0`` under a round limit of
+    300: no playout step, so the port equals the JAX package's
+    ``simple_search`` bit for bit (action and visit probabilities), and
+    its tree equals the tree JAX builds with the playout cap that JAX's
+    own argument rule gives."""
+    js, ts = ttt_roots()
+    iterations = 40
+    trees = []
+    real = tsimple.simple_search_tree
+
+    def spy(env, states, gen, iterations, c, sim_limit):
+        trees.append(sim_limit)
+        trees.append(real(env, states, gen, iterations, c, sim_limit)[0])
+        return trees[-1], 0
+
+    monkeypatch.setattr(tsimple, "simple_search_tree", spy)
+    ta, tp = tsimple.simple_search(tttt.ENV, ts, torch.Generator().manual_seed(0),
+                                   iterations=iterations, c=2.0, simulate_round_limit=300,
+                                   selection=selection, rollout_limit=0)
+    ja, jp = jsimple.simple_search(jttt.ENV, js, jax.random.PRNGKey(0), iterations=iterations,
+                                   c=2.0, simulate_round_limit=300, selection=selection,
+                                   rollout_limit=0)
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    limit = jsimple._check_args(selection, 0, 300)
+    assert trees[0] == limit == 0
+    jt, player = jsimple.simple_search_init(jttt.ENV, js, capacity=iterations + 1)
+    jt, _ = jsimple.simple_search_chunk(jttt.ENV, jt, js, jax.random.PRNGKey(0), player,
+                                        n_iters=iterations, c=2.0, rollout_limit=limit)
+    assert_trees_equal(jt, trees[1])
+
+
+@pytest.mark.parametrize("limit", [1, 3])
+def test_rollout_limit_caps_every_playout(monkeypatch, limit):
+    """With ``rollout_limit=k`` (below ``simulate_round_limit``) no
+    playout takes more than k env steps, and from tic-tac-toe's opening
+    some take exactly k."""
+    steps = []
+    real = tsimple._rollout
+
+    def spy(env, states, gen, player, sim_limit):
+        n = []
+
+        def step(s, action):
+            n.append(1)
+            return env.step(s, action)
+
+        out = real(dataclasses.replace(env, step=step), states, gen, player, sim_limit)
+        steps.append(len(n))
+        return out
+
+    monkeypatch.setattr(tsimple, "_rollout", spy)
+    tsimple.simple_search(tttt.ENV, tttt.init(range(4), device="cpu"),
+                          torch.Generator().manual_seed(3), iterations=20,
+                          simulate_round_limit=9, rollout_limit=limit)
+    assert len(steps) == 20 and max(steps) == limit
 
 
 def test_search_on_cpu_launches_no_kernel():
