@@ -17,14 +17,23 @@ Phases, each reported on one flushed line with the elapsed seconds:
 4. reference: the port on the card against the port on the CPU on small
    inputs (legal masks, a PUCT search, a pure-rollout search without
    playouts in both selection modes and a one-game ``get_next_move``
-   search exactly, the ResNet and one training step, with TF32 off for
-   that step, within stated tolerances), and a breakdown of one search
-   iteration's parts at full width;
+   search exactly, ``legal_single`` over the 26 digits against
+   ``legal_digits`` for 60 seeded positions x 6 dice x both players
+   exactly, the ResNet and one training step, with TF32 off for that step,
+   within stated tolerances), and a breakdown of one search iteration's
+   parts at full width;
 5. self-play: ``train/self_play.py::self_play`` at the full width of
    ``configs/bg_full.toml`` (1024 games, 100 simulations, the 256x19
    ResNet, A = 1352) for 2 rounds (the one cut), with both kernels' launch
    counts, which must be above 0 and equal what the search's levels
    predict;
+5a. bf16: the bf16 inference policy (``DIE_E_BF16=1``) on that phase's
+   net and last states: the bf16 forward's softmax and value within 0.05
+   of the f32 (TF32) forward's at B = 1024, both forwards' times with
+   CUDA events beside their FLOPs and the TF32 and bf16 peaks, then
+   ``self_play`` for 2 rounds with ``net_eval_fn(net, compute_dtype(dev))``,
+   its simulations/s beside the f32 phase's and both kernels' launches as
+   its search predicts, then both kernels bit for bit at its shape;
 6. learn: the main path, the port's CLI ``learn`` on that config at full
    width (1024 games, 100 simulations, 256x19, batches of 256, 4 epochs),
    cut to 2 learn iterations of 1 self-play run of 2 rounds each and a
@@ -35,6 +44,15 @@ Phases, each reported on one flushed line with the elapsed seconds:
    kernel's launches on the self-play and the arena path; it prints the
    wall time of each stage, the train step's time and TF32 share, and the
    peak device memory;
+6a. bf16: the port's CLI ``play -1 model -2 random`` under
+   ``DIE_E_BF16=1`` on the learn phase's ``best`` (100 games, cut to 2
+   rounds): the model's ``net_eval_fn`` gets bf16, the tally adds up, the
+   launches are what the search predicts, both kernels bit for bit at the
+   arena's shape;
+6b. bn-probe: the port's ``bn_padding_probe`` on the learn phase's
+   ``best`` and its last ``memory.npz`` at the script's defaults (batch
+   32, 3 steps, 144 rows): every number finite and the arms apart
+   (``rel_params_delta > 0``); it prints the probe's JSON line;
 7. mcts: the port's CLI ``play -1 mcts -2 random -o DIR`` on that config
    at full width (400 games, 100 UCB1 iterations a move, c = 2, A = 1352,
    tree capacity 101), cut to 2 arena rounds and playouts of at most 4
@@ -91,7 +109,8 @@ Phases, each reported on one flushed line with the elapsed seconds:
    searches predict; both kernels are then held bit for bit at every
    shape the phase launched them on;
 15. the kernel table as one JSON line (``launches`` summed over every
-   path, ``launches_by_path`` by path), then the result line
+   path, ``launches_by_path`` by path, the bf16 paths as ``bf16_self_play``
+   and ``bf16_cli_arena``), then the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase makes the script exit non-zero without the result line;
@@ -106,6 +125,10 @@ Usage (from the root of a checkout):
     python3 chip_smoke.py --device cpu --games 4 --iterations 4 \\
         --filters 8 --blocks 1                  # CPU rehearsal, no result
         [--phases port|strength|learning]       # ... of phases 1-9, 6 and 10-11, or 12-14
+
+A CPU rehearsal forces the bf16 phase's bf16 through the explicit dtype
+(``compute_dtype`` is f32 off the card); its CLI step runs at the f32 that
+``compute_dtype`` gives there.
 """
 
 from __future__ import annotations
@@ -115,6 +138,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -145,6 +169,7 @@ LEARN2_CUTS = {"learn_iterations": 1, "self_play_iterations": 1, "num_epochs": 1
                "arena_gate_block": 100, "arena_round_limit": 2}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 TF32_FLOP_PER_S = 495e12   # H100 SXM dense TF32, NVIDIA data sheet
+BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16, NVIDIA data sheet
 T0 = time.perf_counter()
 
 
@@ -497,6 +522,63 @@ def _next_move_reference(dev, states, states_cpu, seed) -> None:
         "support")
 
 
+def _random_positions(n, seed):
+    """(board [n, 24], bar [n, 2]) int64 numpy arrays: 15 checkers a side
+    split over the board, the bar and off, a third of the sides gathered in
+    their home board (bear-off shapes), points held by one side only."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    board = np.zeros((n, 24), np.int64)
+    bar = np.zeros((n, 2), np.int64)
+    for i in range(n):
+        for side, player in enumerate((-1, 1)):
+            left = 15 - (int(rng.integers(0, 15)) if rng.random() < 0.3 else 0)
+            bar[i, side] = min(left, int(rng.choice([0, 0, 0, 1, 2])))
+            left -= bar[i, side]
+            home = rng.random() < 0.35
+            points = np.arange(6) if player < 0 else np.arange(18, 24)
+            while left > 0:
+                q = int(rng.choice(points)) if home else int(rng.integers(0, 24))
+                if board[i, q] * player < 0:
+                    continue  # held by the other side
+                add = min(left, int(rng.integers(1, 6)))
+                board[i, q] += add * player
+                left -= add
+    return board, bar
+
+
+def _legal_single_reference(dev, seed) -> None:
+    """``legal_single`` over the 26 digits equals ``legal_digits`` on the
+    device, and the cpu's, exactly: 60 seeded positions x 6 dice x both
+    players."""
+    import numpy as np
+    import torch
+
+    from die_e_tpu_torch.envs import backgammon as bg
+
+    board, bar = _random_positions(60, seed)
+    rows = [torch.from_numpy(x) for x in (
+        np.repeat(board, 12, 0), np.repeat(bar, 12, 0),
+        np.tile(np.repeat([-1, 1], 6), 60), np.tile(np.arange(1, 7), 120))]
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        b, br, p, die = (x.to(d) for x in rows)
+        single = bg.legal_single(b[:, None], br[:, None], p[:, None], die[:, None],
+                                 torch.arange(26, device=d)[None])
+        digits = bg.legal_digits(b, br, p, die)
+        if not torch.equal(single, digits):
+            raise AssertionError(f"legal_single differs from legal_digits on {d.type} at rows "
+                                 f"{torch.nonzero((single != digits).any(-1))[:8, 0].tolist()}")
+        out[d.type] = single.cpu()
+    if not torch.equal(out[dev.type], out["cpu"]):
+        raise AssertionError("legal_single on the device differs from the cpu's")
+    say("reference", f"legal_single over the 26 digits equals legal_digits for 60 seeded "
+        f"positions x 6 dice x both players ({int(out['cpu'].sum())} legal of "
+        f"{out['cpu'].numel()}; {int((bar > 0).any(1).sum())} positions with a bar checker), "
+        "on the device and on the cpu, exactly")
+
+
 def _set_tf32(on: bool) -> None:
     import torch
 
@@ -657,6 +739,7 @@ def phase_reference(dev, spec_full, games, iterations, seed) -> None:
     _simple_search_reference(dev, small, small_cpu, seed)
     _simple_search_playouts(dev, seed)
     _next_move_reference(dev, states, states_cpu, seed)
+    _legal_single_reference(dev, seed)
     _train_step_reference(dev, spec_small, obs, seed)
 
     if dev.type != "cuda":
@@ -673,37 +756,34 @@ def phase_reference(dev, spec_full, games, iterations, seed) -> None:
         f"forward {fwd:.3f} ms, legal_mask {msk:.3f} ms, step {stp:.3f} ms")
 
 
-def phase_self_play(dev, cfg, spec, games, iterations, rounds, seed) -> dict:
+def _self_play_run(dev, cfg, spec, eval_fn, games, iterations, rounds, seed, path) -> dict:
+    """``self_play`` with ``eval_fn`` for ``rounds`` rounds from ``seed``;
+    checks the records and the kernels' launches against the search's
+    levels; returns the trajectory, the wall time, simulations/s, and the
+    launches and their shapes."""
     import numpy as np
     import torch
 
     from die_e_tpu_torch.envs import backgammon as bg
-    from die_e_tpu_torch.nets.resnet import forward, make_net
     from die_e_tpu_torch.ops import rows as R
     from die_e_tpu_torch.train.self_play import trajectory_to_memory, self_play
 
     env = dataclasses.replace(bg.ENV, spec=spec)
-    net = make_net(spec, seed, dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     m = cfg.mcts
-    say("self-play", f"B={games} iterations={iterations} c={m.c} negamax={m.negamax} "
-        f"net={spec.n_filters}x{spec.n_res_blocks} A={spec.num_actions} "
-        f"rounds={rounds} (cut from round limit {m.simulate_round_limit})")
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    _sync(dev)
     R.reset_launches()
     t0 = time.perf_counter()
     traj = self_play(
-        env, lambda obs: forward(net, obs), gen, batch_size=games,
+        env, eval_fn, gen, batch_size=games,
         iterations=iterations, c=m.c, dirichlet_alpha=m.dirichlet_alpha,
         dirichlet_epsilon=m.dirichlet_epsilon,
         temperature=cfg.alphazero.temperature, round_limit=rounds,
         negamax=m.negamax, device=dev,
     )
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    _sync(dev)
     wall = time.perf_counter() - t0
-    launches = dict(R.launches)
+    launches, shapes = dict(R.launches), collections.Counter(R.launch_shapes)
 
     # the records: shapes, finite values, normalized visit rows
     t = traj.obs.shape[0]
@@ -720,13 +800,94 @@ def phase_self_play(dev, cfg, spec, games, iterations, rounds, seed) -> dict:
         raise AssertionError("visit rows of valid fragments do not sum to 1")
     if not np.isfinite(ps).all() or len(obs) != valid.sum():
         raise AssertionError("memory extraction failed")
-    sims = t * iterations * games
-    depth = traj.levels / (t * iterations)
-    say("self-play", f"{t} rounds in {wall:.2f}s: {sims / wall:.0f} simulations/s, "
-        f"mean descent depth {depth:.3f} levels, {int(valid.sum())} fragments, "
+    _check_launches(dev, path, launches, _puct_launches(traj.levels, t, iterations))
+    return {"traj": traj, "wall": wall, "sims_per_s": t * iterations * games / wall,
+            "fragments": int(valid.sum()), "launches": launches, "shapes": shapes}
+
+
+def phase_self_play(dev, cfg, spec, games, iterations, rounds, seed) -> dict:
+    """Full-width self-play; returns its launches, its net, the last
+    round's observations and its simulations/s."""
+    from die_e_tpu_torch.nets.resnet import forward, make_net
+
+    net = make_net(spec, seed, dev)
+    m = cfg.mcts
+    say("self-play", f"B={games} iterations={iterations} c={m.c} negamax={m.negamax} "
+        f"net={spec.n_filters}x{spec.n_res_blocks} A={spec.num_actions} "
+        f"rounds={rounds} (cut from round limit {m.simulate_round_limit})")
+    run = _self_play_run(dev, cfg, spec, lambda obs: forward(net, obs), games, iterations,
+                         rounds, seed, "self-play")
+    traj, wall, launches = run["traj"], run["wall"], run["launches"]
+    t = traj.obs.shape[0]
+    say("self-play", f"{t} rounds in {wall:.2f}s: {run['sims_per_s']:.0f} simulations/s, "
+        f"mean descent depth {traj.levels / (t * iterations):.3f} levels, "
+        f"{run['fragments']} fragments, "
         f"launches gather={launches['gather_rows']} scatter={launches['scatter_rows']}")
-    _check_launches(dev, "self-play", launches, _puct_launches(traj.levels, t, iterations))
-    return launches
+    return {"launches": launches, "net": net, "obs": traj.obs[-1],
+            "sims_per_s": run["sims_per_s"]}
+
+
+@contextlib.contextmanager
+def _bf16_env():
+    """``DIE_E_BF16=1`` for the block, as a user sets it; unset after."""
+    os.environ["DIE_E_BF16"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("DIE_E_BF16", None)
+
+
+def phase_bf16(dev, cfg, spec, games, iterations, rounds, seed, sp, card):
+    """The bf16 inference policy on the self-play phase's net and states:
+    the bf16 forward against the f32 (TF32) one, both forwards' times, and
+    ``self_play`` with ``net_eval_fn(net, compute_dtype(dev))`` under
+    ``DIE_E_BF16=1``; returns the kernels' launches and their shapes."""
+    import torch
+
+    from die_e_tpu_torch.core.device import compute_dtype
+    from die_e_tpu_torch.nets.resnet import forward
+    from die_e_tpu_torch.train.learner import net_eval_fn
+
+    net, obs = sp["net"], sp["obs"]
+    with _bf16_env():
+        # a CPU rehearsal, where compute_dtype is f32, forces bf16 explicitly
+        dtype = compute_dtype(dev) if dev.type == "cuda" else torch.bfloat16
+        if dtype != torch.bfloat16:
+            raise AssertionError(f"compute_dtype under DIE_E_BF16=1 gave {dtype} on the card")
+        p32, v32 = forward(net, obs)
+        p16, v16 = forward(net, obs, dtype=dtype)
+        if (p16.dtype, v16.dtype) != (torch.float32, torch.float32):
+            raise AssertionError(f"bf16 forward returned {p16.dtype}, {v16.dtype}")
+        err = max((p16 - p32).abs().max().item(), (v16 - v32).abs().max().item())
+        tol = 0.05  # the JAX package's bf16-against-f32 tolerance (tests/test_resnet.py)
+        if not err <= tol:
+            raise AssertionError(f"bf16 forward differs from f32 by {err} > {tol}")
+        say("bf16", f"compute_dtype under DIE_E_BF16=1: {dtype}"
+            + ("" if dev.type == "cuda" else " (forced: compute_dtype is f32 on the cpu)")
+            + f"; {spec.n_filters}x{spec.n_res_blocks} forward at B={obs.shape[0]}, "
+            f"A={spec.num_actions}: bf16 softmax and value within {err:.3e} <= {tol} of "
+            + ("f32 (TF32 convs and matmuls)" if dev.type == "cuda" else "f32"))
+        if dev.type == "cuda":
+            flops = _forward_flops(net) * obs.shape[0]
+            ms = {torch.float32: [], dtype: []}
+            for d in (torch.float32, dtype, dtype, torch.float32):  # in turns
+                ms[d].append(time_ms(lambda d=d: forward(net, obs, dtype=d), 20, warmup=3))
+            t32, t16 = min(ms[torch.float32]), min(ms[dtype])
+            say("bf16", f"on {card}: forward f32/TF32 "
+                + " / ".join(f"{t:.3f}" for t in ms[torch.float32]) + " ms, bf16 "
+                + " / ".join(f"{t:.3f}" for t in ms[dtype])
+                + f" ms (best {t32 / t16:.2f}x); {flops / 1e9:.1f} GFLOP (from the shapes): "
+                f"{100 * flops / (t32 * 1e-3) / TF32_FLOP_PER_S:.1f}% of the 495 TFLOP/s TF32 "
+                f"peak, {100 * flops / (t16 * 1e-3) / BF16_FLOP_PER_S:.1f}% of the 989 TFLOP/s "
+                "bf16 peak")
+        run = _self_play_run(dev, cfg, spec, net_eval_fn(net, dtype), games, iterations, rounds,
+                             seed, "bf16_self_play")
+    traj, launches = run["traj"], run["launches"]
+    say("bf16", f"self_play with net_eval_fn(net, {dtype}): {traj.obs.shape[0]} rounds in "
+        f"{run['wall']:.2f}s: {run['sims_per_s']:.0f} simulations/s (f32 in the self-play "
+        f"phase: {sp['sims_per_s']:.0f}), {run['fragments']} fragments, launches "
+        + _launch_line(launches, dev))
+    return {"bf16_self_play": launches}, {"bf16_self_play": run["shapes"]}
 
 
 def _puct_launches(levels, searches, iterations) -> dict:
@@ -987,6 +1148,94 @@ def phase_learn(dev, spec, games, iterations, seed):
             f"(3x the forward's, from the shapes): {flops / ms / 1e9:.1f} TFLOP/s, "
             f"{100 * flops / (ms * 1e-3) / TF32_FLOP_PER_S:.1f}% of the 495 TFLOP/s TF32 peak")
     return taps.launches, taps.shapes, run_dir
+
+
+@contextlib.contextmanager
+def _eval_dtypes():
+    """The dtypes ``net_eval_fn`` is asked for in the block, in order."""
+    from die_e_tpu_torch.train import learner
+
+    seen, real = [], learner.net_eval_fn
+
+    def spy(net, dtype=learner.COMPUTE_DTYPE):
+        seen.append(dtype)
+        return real(net, dtype)
+
+    learner.net_eval_fn = spy
+    try:
+        yield seen
+    finally:
+        learner.net_eval_fn = real
+
+
+def phase_bf16_cli(dev, spec, learn_dir, games, iterations, seed, card):
+    """The port's CLI ``play -1 model -2 random`` under ``DIE_E_BF16=1`` on
+    the learn phase's ``best``, cut to 2 arena rounds; returns the kernels'
+    launches and their shapes."""
+    import torch
+
+    from die_e_tpu_torch.arena import versus
+    from die_e_tpu_torch.cli import main as cli
+
+    run_dir = _run_dir("bf16-cli")
+    cuts = {"arena_round_limit": SCRIPT_ROUNDS, "iterations": iterations}
+    cfg = _config_copy(os.path.join(run_dir, "play.toml"), cuts)
+    best = os.path.join(learn_dir, "models", "backgammon", "best")
+    say("bf16", f"DIE_E_BF16=1 CLI play -1 model -2 random on the learn phase's best (net "
+        f"{spec.n_filters}x{spec.n_res_blocks}, {iterations} simulations a move), {games} games, "
+        f"configs/bg_full.toml cut to {SCRIPT_ROUNDS} arena rounds (of 300); in {run_dir}")
+    argv = ["--device", dev.type, "--seed", str(seed), "-g", "backgammon", "-c", cfg, "play",
+            "-1", "model", "-2", "random", "--model1-path", best, "--num-games", str(games)]
+    with _game_at(spec), _bf16_env(), _eval_dtypes() as dtypes, _MatchTaps(
+            dev, lambda *a: "bf16_cli_arena", versus) as taps:
+        rc, text, _ = _run_main(cli.main, argv)
+    want = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    if rc != 0 or dtypes != [want]:
+        raise AssertionError(f"play rc {rc}, net_eval_fn dtypes {dtypes} (want [{want}]):\n{text}")
+    tally = _tally(text)
+    if tally["Number of Games"] != games or sum(
+            tally[k] for k in ("Wins Player 1", "Wins Player 2", "Draws")) != games:
+        raise AssertionError(f"the tally {tally} does not sum to {games}:\n{text}")
+    ((_, res, wall),) = taps.matches
+    say("bf16", f"the model's net_eval_fn got {dtypes[0]}; tally {tally['Wins Player 1']}/"
+        f"{tally['Wins Player 2']}/{tally['Draws']} (model/random/draws) of {games}; on {card}: "
+        f"{res.rounds} moves in {wall:.2f}s, {wall / max(res.rounds, 1):.3f} s a move; launches "
+        + _launch_line(taps.launches["bf16_cli_arena"], dev))
+    shutil.rmtree(run_dir)
+    return taps.launches, taps.shapes
+
+
+def phase_bn_probe(dev, spec, learn_dir, card) -> None:
+    """The port's BatchNorm-padding probe on the learn phase's ``best`` and
+    its own ``memory.npz`` (the last in sorted order), at the script's
+    defaults (a CPU rehearsal's 8-row files take batch 2, 2 steps)."""
+    from die_e_tpu_torch.scripts import bn_padding_probe as probe
+
+    memory = os.path.join(learn_dir, "data", "backgammon", "run-*", "lrn-*", "sp-*",
+                          "memory.npz")
+    argv = ["--model-path", os.path.join(learn_dir, "models", "backgammon", "best"),
+            "--memory", memory, "--device", dev.type]
+    if dev.type != "cuda":
+        argv += ["--batch", "2", "--steps", "2"]
+    a = probe.build_parser().parse_args(argv)
+    say("bn-probe", f"bn_padding_probe on the learn phase's best (net {spec.n_filters}x"
+        f"{spec.n_res_blocks}) and its last memory.npz: batch {a.batch}, {a.steps} steps, "
+        f"{probe.rows_needed(a.steps, a.batch)} rows, lr {a.lr}, wd {a.wd}")
+    _sync(dev)
+    t0 = time.perf_counter()
+    with _game_at(spec):
+        rc, text, _ = _run_main(probe.main, argv)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    rows = _json_rows(text, "bn_padding_probe")
+    keys = ("rel_batch_stats_delta", "rel_params_delta", "eval_loss_padded",
+            "eval_loss_natural", "eval_loss_rel_delta")
+    if rc != 0 or len(rows) != 1 or not all(math.isfinite(rows[0][k]) for k in keys) \
+            or not rows[0]["rel_params_delta"] > 0:
+        raise AssertionError(f"bn_padding_probe rc {rc}:\n{text}")
+    print(json.dumps(rows[0]), flush=True)
+    say("bn-probe", f"on {card}: {wall:.2f}s; every number finite, the arms differ "
+        f"(rel_params_delta {rows[0]['rel_params_delta']:.3e} > 0)")
 
 
 def phase_mcts(dev, games, iterations, seed, card) -> dict:
@@ -1836,6 +2085,13 @@ def _sync(dev) -> None:
         torch.cuda.synchronize()
 
 
+def _add_path(paths, errs, dev, seed, phase, launches, shapes) -> None:
+    """Add a phase's launches by path to ``paths``, and both kernels' errors
+    at every shape it launched them on to ``errs``."""
+    paths.update(launches)
+    errs.append(_check_kernels_at(dev, sum(shapes.values(), collections.Counter()), seed, phase))
+
+
 def phase_port_rest(dev, args, cfg, spec, games, iterations, learn_dir, card, errs):
     """Phases 7-9 (mcts, compaction, learn2); appends the kernels' errors at
     their launch shapes to ``errs`` and returns their launches by path."""
@@ -1909,6 +2165,7 @@ def main(argv=None) -> int:
 
     if args.rank_worker is not None:
         return rank_worker(args)
+    os.environ.pop("DIE_E_BF16", None)  # f32 inference but in the bf16 phases, which set it
     dev = resolve_device("cuda:0" if args.device == "cuda" else "cpu")
     cfg = load_config(CONFIG)
     games = args.games or cfg.alphazero.num_self_play_batches
@@ -1928,15 +2185,25 @@ def main(argv=None) -> int:
         check_budget("kernels")
         phase_reference(dev, spec, games, iterations, args.seed)
         check_budget("reference")
-        paths["self_play"] = phase_self_play(dev, cfg, spec, games, iterations, ROUNDS,
-                                             args.seed)
+        sp = phase_self_play(dev, cfg, spec, games, iterations, ROUNDS, args.seed)
+        paths["self_play"] = sp["launches"]
         check_budget("self-play")
+        _add_path(paths, errs, dev, args.seed, "bf16", *phase_bf16(
+            dev, cfg, spec, games, iterations, ROUNDS, args.seed, sp, card))
+        del sp
+        check_budget("bf16")
     learn_dir = None
     if "learn" in part:
         by_path, _, learn_dir = phase_learn(dev, spec, games, iterations, args.seed)
         paths.update(by_path)
         check_budget("learn")
     if "port" in part:
+        _add_path(paths, errs, dev, args.seed, "bf16", *phase_bf16_cli(
+            dev, spec, learn_dir, args.games or LEARN_CUTS["arena_num_games"], iterations,
+            args.seed, card))
+        check_budget("bf16")
+        phase_bn_probe(dev, spec, learn_dir, card)
+        check_budget("bn-probe")
         paths.update(phase_port_rest(dev, args, cfg, spec, games, iterations, learn_dir, card,
                                      errs))
     names = tuple(n for n in CHECKS if n in part)

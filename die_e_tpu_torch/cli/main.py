@@ -12,7 +12,10 @@ flags ``--coordinator``/``--num-processes``/``--process-id``.
 place of the JAX package's ``DIE_E_SP_COMPACT=1`` and
 ``DIE_E_ARENA_COMPACT=1``.  Like the JAX package's CLI it writes
 ``./data/{game}/...`` and ``./models/{game}/...`` under the working
-directory.
+directory.  ``DIE_E_BF16=1`` runs inference (``learn``'s self-play and
+gate, ``play``'s model agents) in bfloat16 on the card, as the JAX
+package's does on the TPU (``core/device.py::compute_dtype``); training
+stays float32, and the CPU float32.
 
 Several processes (``learn`` only): start one per card, each with the same
 ``--coordinator`` and ``--num-processes`` and its own ``--process-id`` (or
@@ -37,6 +40,7 @@ def _get_env(name: str):
 
 def _agent(kind: str, model_path, env_mod, dev):
     from die_e_tpu_torch.arena.versus import Agent, Player
+    from die_e_tpu_torch.core.device import compute_dtype
     from die_e_tpu_torch.train import checkpoint as ckpt
     from die_e_tpu_torch.train.learner import net_eval_fn
 
@@ -48,7 +52,8 @@ def _agent(kind: str, model_path, env_mod, dev):
         if not model_path and not path.exists():
             raise SystemExit(f"model agent requested but no model at {path}; "
                              "pass --model1-path/--model2-path")
-        return Player(Agent.MODEL, net_eval_fn(ckpt.load_net(path, env_mod.SPEC, dev)))
+        return Player(Agent.MODEL, net_eval_fn(ckpt.load_net(path, env_mod.SPEC, dev),
+                                               compute_dtype(dev)))
     raise SystemExit(f"unknown agent kind {kind!r} (random|mcts|model)")
 
 

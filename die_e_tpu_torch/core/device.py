@@ -1,7 +1,9 @@
 """Device and numerics policy of the port, stated once.
 
 * Compute is float32, as in the JAX package (``core/mesh.py::compute_dtype``
-  defaults to f32; DIVERGENCES row 22).
+  defaults to f32; DIVERGENCES row 22).  Inference may opt in to bfloat16
+  on the card with ``DIE_E_BF16=1`` (:func:`compute_dtype`); training is
+  float32 always.
 * TF32 is allowed for both matmuls and cuDNN convolutions.  The reference
   ran its f32 convolutions through the TPU's bf16 matrix unit with f32
   accumulation (default XLA precision); TF32 keeps 10 mantissa bits to
@@ -16,6 +18,8 @@ fall back quietly.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -39,3 +43,14 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def compute_dtype(device) -> torch.dtype:
+    """The inference compute dtype on ``device``: bfloat16 when
+    ``DIE_E_BF16=1`` and the device is CUDA, float32 otherwise (so the CPU
+    stays float32).  The port of ``die_e_tpu/core/mesh.py::compute_dtype``,
+    whose bf16 needs the TPU.  The net keeps float32 parameters and
+    BatchNorm either way (``nets/resnet.py``)."""
+    if os.environ.get("DIE_E_BF16", "0") == "1" and torch.device(device).type == "cuda":
+        return torch.bfloat16
+    return COMPUTE_DTYPE

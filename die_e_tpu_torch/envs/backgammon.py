@@ -305,6 +305,63 @@ def _is_collectible(board, bar, player):
     return (bar_own == 0) & (~blocked)
 
 
+def legal_single(board, bar, player, die, f):
+    """Is the sub-move from digit ``f`` (0..23 board, 24 bar, 25 absent ->
+    False) with ``die`` legal?  The port of the JAX ``legal_single``, the
+    scalar oracle that :func:`legal_digits` is held against: the push
+    conditions of the reference's entry, normal and bear-off move
+    generators, one digit at a time.  int64 board ``[..., 24]`` and bar
+    ``[..., 2]``; ``player``, ``die`` and ``f`` broadcast against their
+    batch shape ``[...]``, which the result has.  Nothing on the main path
+    calls it."""
+    shape = torch.broadcast_shapes(board.shape[:-1], bar.shape[:-1], player.shape,
+                                   die.shape, f.shape)
+    board, bar = board.expand(*shape, 24).reshape(-1, 24), bar.expand(*shape, 2).reshape(-1, 2)
+    player, die, f = (t.expand(shape).reshape(-1) for t in (player, die, f))
+    dev = board.device
+    own = (player + 1) // 2
+    has_bar = bar.gather(1, own[:, None])[:, 0] > 0
+
+    # --- entry from the bar
+    e = torch.where(player < 0, 24 - die, die - 1)
+    b_e = _cell(board, e)
+    entry_open = torch.where(player < 0, b_e < 2, b_e > -2)
+    legal_entry = has_bar & (f == 24) & entry_open
+
+    on_board = (f >= 0) & (f <= 23)
+    fc = f.clamp(0, 23)
+    t_raw = fc + die * player
+    in_range = (t_raw >= 0) & (t_raw <= 23)
+    b_fc = _cell(board, fc)
+    b_tc = _cell(board, t_raw.clamp(0, 23))
+    own_piece = torch.where(player < 0, b_fc <= -1, b_fc >= 1)
+    dest_open = torch.where(player < 0, b_tc <= 1, b_tc >= -1)
+
+    # --- normal move
+    legal_normal = (~has_bar) & on_board & in_range & own_piece & dest_open
+
+    # --- bear-off
+    collectible = _is_collectible(board, bar, player)
+    exact = torch.where(player < 0, t_raw == -1, t_raw == 24) & own_piece
+    idx = torch.arange(24, device=dev)
+    # player -1: highest j < die-1 with board[j] < 0 and sum(board[j+1..6]) >= 0
+    suff = torch.where(idx < 6, board, 0).flip(-1).cumsum(-1).flip(-1)  # sum board[j:6]
+    suff_next = torch.cat([suff[:, 1:6], torch.zeros_like(suff[:, :1])], -1)
+    cond_neg = (board[:, :6] < 0) & (suff_next >= 0)
+    j6 = torch.arange(6, device=dev)
+    hc = torch.where(cond_neg & (j6 < (die - 1)[:, None]), j6, -1).amax(-1)
+    # player +1: lowest j >= 24-die with board[j] > 0 and sum(board[18..j-1]) <= 0
+    pre = torch.where(idx >= 18, board, 0).cumsum(-1)  # sum board[18:j+1]
+    pre_before = torch.cat([torch.zeros_like(pre[:, :1]), pre[:, :23]], -1)
+    j18 = torch.arange(18, 24, device=dev)
+    cond_pos = (board[:, 18:] > 0) & (pre_before[:, 18:] <= 0)
+    lc = torch.where(cond_pos & (j18 >= (24 - die)[:, None]), j18, 99).amin(-1)
+    higher = torch.where(player < 0, fc == hc, fc == lc)
+
+    legal_collect = (~has_bar) & on_board & (~in_range) & collectible & (exact | higher)
+    return (legal_entry | legal_normal | legal_collect).reshape(shape)
+
+
 def legal_digits(board, bar, player, die):
     """[M, 26] bool: is the sub-move from each digit (0..23 board, 24 bar,
     25 absent -> False) with ``die`` legal?  int64 [M, 24] board, [M, 2]

@@ -14,6 +14,16 @@ else (:mod:`die_e_tpu_torch.nets.convert`); the convolutions run NCHW
 inside.  BatchNorm is eps 1e-5 and momentum 0.99 in flax's convention
 (:class:`BatchNorm`).
 
+Inference may run in another compute dtype (``dtype`` of :func:`forward`,
+bfloat16 under ``core/device.py::compute_dtype``), with flax's semantics
+for ``make_net(spec, dtype=...)``: the input is cast to it; each conv and
+dense layer computes in it, its float32 parameters cast at the call (one
+set of float32 weights serves every dtype, so training and checkpoints do
+not change); each BatchNorm takes its input to float32 and normalises
+with the float32 running statistics, so the residual stream is float32;
+``tanh`` runs in the dtype; policy and value are returned as float32.
+Training (:func:`forward_train`) is float32 always.
+
 A net is in eval mode everywhere except inside :func:`forward_train`, and
 the inference :func:`forward` refuses a net in train mode, so a net left
 training never reaches the search (the JAX package passes ``train=False``
@@ -35,6 +45,17 @@ BN_MOMENTUM = 0.01  # flax momentum 0.99
 
 def _conv(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, padding=1)
+
+
+def _at(layer, x, dtype):
+    """A conv or dense ``layer`` computing in ``dtype``: its input and its
+    float32 parameters cast at the call, as flax's ``dtype=`` does."""
+    if dtype == COMPUTE_DTYPE:
+        return layer(x)
+    w, b = layer.weight.to(dtype), layer.bias.to(dtype)
+    if isinstance(layer, nn.Conv2d):
+        return layer._conv_forward(x.to(dtype), w, b)
+    return F.linear(x.to(dtype), w, b)
 
 
 class _CrossRankBatchNorm(torch.autograd.Function):
@@ -102,7 +123,7 @@ class BatchNorm(nn.BatchNorm2d):
 
     def forward(self, x):
         if not self.training:
-            return super().forward(x)
+            return super().forward(x.to(COMPUTE_DTYPE))
         if self.group is not None:
             return _CrossRankBatchNorm.apply(x, self.weight, self.bias, self)
         with torch.no_grad():
@@ -120,9 +141,9 @@ class ResBlock(nn.Module):
         self.conv0, self.bn0 = _conv(filters, filters), BatchNorm(filters)
         self.conv1, self.bn1 = _conv(filters, filters), BatchNorm(filters)
 
-    def forward(self, x):
-        y = F.relu(self.bn0(self.conv0(x)))
-        return F.relu(self.bn1(self.conv1(y)) + x)
+    def forward(self, x, dtype=COMPUTE_DTYPE):
+        y = F.relu(self.bn0(_at(self.conv0, x, dtype)))
+        return F.relu(self.bn1(_at(self.conv1, y, dtype)) + x)
 
 
 class PolicyValueNet(nn.Module):
@@ -145,16 +166,18 @@ class PolicyValueNet(nn.Module):
     def _flatten_nhwc(x):
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
-    def forward(self, obs):
-        x = obs.to(COMPUTE_DTYPE).permute(0, 3, 1, 2)  # NHWC -> NCHW
-        x = F.relu(self.stem_bn(self.stem_conv(x)))
+    def forward(self, obs, dtype=COMPUTE_DTYPE):
+        """``dtype``: the inference compute dtype (module doc); training
+        calls it at float32."""
+        x = obs.to(dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW
+        x = F.relu(self.stem_bn(_at(self.stem_conv, x, dtype)))
         for block in self.blocks:
-            x = block(x)
-        p = F.relu(self.policy_bn(self.policy_conv(x)))
-        p = self.policy_fc(self._flatten_nhwc(p))
-        v = F.relu(self.value_bn(self.value_conv(x)))
-        v = torch.tanh(self.value_fc(self._flatten_nhwc(v)))
-        return p, v
+            x = block(x, dtype)
+        p = F.relu(self.policy_bn(_at(self.policy_conv, x, dtype)))
+        p = _at(self.policy_fc, self._flatten_nhwc(p), dtype)
+        v = F.relu(self.value_bn(_at(self.value_conv, x, dtype)))
+        v = torch.tanh(_at(self.value_fc, self._flatten_nhwc(v), dtype))
+        return p.to(COMPUTE_DTYPE), v.to(COMPUTE_DTYPE)
 
 
 def make_net(spec: GameSpec, seed: int = 0, device=None) -> PolicyValueNet:
@@ -185,10 +208,11 @@ def _eval_net(net: PolicyValueNet) -> PolicyValueNet:
 
 
 @torch.no_grad()
-def forward(net: PolicyValueNet, obs, softmax_policy: bool = True):
+def forward(net: PolicyValueNet, obs, softmax_policy: bool = True, dtype=COMPUTE_DTYPE):
     """Inference forward: softmaxed policy + tanh value, BatchNorm in eval
-    mode."""
-    logits, value = _eval_net(net)(obs)
+    mode, convs and dense layers in ``dtype`` (module doc); float32
+    outputs."""
+    logits, value = _eval_net(net)(obs, dtype)
     if softmax_policy:
         return torch.softmax(logits, dim=-1), value
     return logits, value

@@ -8,8 +8,9 @@ temperature 0.3).  Each match appends one ``elo_match`` row to ``--out``
 as it is played.  Pairs already in ``--out`` are cached and not played
 again, so the tournament grows across runs (add a checkpoint, re-run,
 only its pairs play); a model is loaded only when one of its pairs has
-to be played.  Two mcts anchors with different budgets never meet
-(``play`` takes one pure-rollout budget a match).
+to be played, through ``strength_ladder.model_player`` (bfloat16 under
+``DIE_E_BF16=1`` on the card).  Two mcts anchors with different budgets
+never meet (``play`` takes one pure-rollout budget a match).
 
 The ratings are the Bradley-Terry fit (``arena/elo.py::compute_elo``)
 anchored at ``random`` (else the first name), with 300 bootstrap

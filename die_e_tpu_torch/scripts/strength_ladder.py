@@ -9,7 +9,9 @@ half the openings each side, round-limit draws, temperature 0.3.  Rungs:
 * ``mctsN``: the pure-rollout agent at N iterations a move, with its
   playouts capped at ``--rollout-limit`` steps.
 
-The model searches with ``--sims`` simulations a move whatever the rung.
+The model searches with ``--sims`` simulations a move whatever the rung,
+in bfloat16 under ``DIE_E_BF16=1`` on the card (:func:`model_player`, which
+the tournament loads its models through too).
 A rung plays in blocks of ``--block`` games and stops once the 95% Wilson
 interval of its winrate lies above or below 0.5 after ``--min-games``
 (``arena/elo.py::SequentialRung``), else at ``--games``; ``--block 0``
@@ -44,7 +46,7 @@ import torch
 from die_e_tpu_torch.arena.elo import SequentialRung
 from die_e_tpu_torch.arena.versus import Agent, Player, play
 from die_e_tpu_torch.core.config import MctsConfig
-from die_e_tpu_torch.core.device import resolve_device
+from die_e_tpu_torch.core.device import compute_dtype, resolve_device
 from die_e_tpu_torch.core.prng import seed_from
 from die_e_tpu_torch.envs import backgammon as bg
 from die_e_tpu_torch.train import checkpoint as ckpt
@@ -70,7 +72,10 @@ def arena_config(sims: int, round_limit: int, negamax: bool) -> MctsConfig:
 
 
 def model_player(path, dev) -> Player:
-    return Player(Agent.MODEL, net_eval_fn(ckpt.load_net(path, bg.SPEC, dev)))
+    """The model at ``path`` as a player, computing in ``dev``'s inference
+    dtype (bf16 under ``DIE_E_BF16=1`` on the card)."""
+    return Player(Agent.MODEL, net_eval_fn(ckpt.load_net(path, bg.SPEC, dev),
+                                           compute_dtype(dev)))
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 
 from die_e_tpu_torch.arena.versus import Agent, Player, play
+from die_e_tpu_torch.core.device import COMPUTE_DTYPE
 from die_e_tpu_torch.nets.resnet import PolicyValueNet
 from die_e_tpu_torch.train import checkpoint as ckpt
 from die_e_tpu_torch.train.learner import net_eval_fn
@@ -87,11 +88,12 @@ class SequentialGate:
 
 def gate(env, candidate: PolicyValueNet, gen, mcts_cfg, arena_cfg,
          temperature: float, models_base: str = "./models", metrics=None,
-         compact: bool = False) -> bool:
+         compact: bool = False, dtype=COMPUTE_DTYPE) -> bool:
     """Run the gate for the ``candidate`` net (eval mode) with ``gen`` on
     its device; promotes it (writes the ``best`` checkpoint) and returns
     True iff it became the new best.  ``compact``: the arena re-packs live
-    games as games finish (``arena/versus.py::play``)."""
+    games as games finish (``arena/versus.py::play``); ``dtype``: both
+    nets' inference compute dtype."""
     best_path = ckpt.best_model_path(env.spec.name, models_base)
     if not best_path.exists():
         if metrics is not None:
@@ -101,8 +103,8 @@ def gate(env, candidate: PolicyValueNet, gen, mcts_cfg, arena_cfg,
 
     best_net = PolicyValueNet(candidate.spec).to(next(candidate.parameters()).device)
     ckpt.restore_variables(best_path, best_net)
-    p_cand = Player(Agent.MODEL, net_eval_fn(candidate))
-    p_best = Player(Agent.MODEL, net_eval_fn(best_net))
+    p_cand = Player(Agent.MODEL, net_eval_fn(candidate, dtype))
+    p_best = Player(Agent.MODEL, net_eval_fn(best_net, dtype))
 
     def match(n):
         return play(env, p_cand, p_best, gen, mcts_cfg, temperature=temperature,

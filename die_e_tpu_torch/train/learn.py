@@ -47,7 +47,7 @@ import torch
 import torch.distributed as dist
 
 from die_e_tpu_torch.core.config import Config
-from die_e_tpu_torch.core.device import resolve_device
+from die_e_tpu_torch.core.device import compute_dtype, resolve_device
 from die_e_tpu_torch.core.mesh import make_mesh
 from die_e_tpu_torch.core.metrics import Metrics, Timer
 from die_e_tpu_torch.core.prng import seed_from
@@ -184,11 +184,14 @@ def learn(env, config: Config, seed: int = 0, model_path: Optional[str] = None,
                 fallback_restored = i
                 break
     metrics.log("model_bootstrap", source=source)
-    eval_fn = net_eval_fn(state.net)
+    # inference (self-play and the gate) in the compute dtype, bf16 under
+    # DIE_E_BF16=1 on the card; training stays float32
+    dtype = compute_dtype(dev)
+    eval_fn = net_eval_fn(state.net, dtype)
 
     def run_gate(gen):
         gate(env, state.net, gen, mcts_cfg, config.arena, az.temperature,
-             models_base, metrics, compact=compact_arena)
+             models_base, metrics, compact=compact_arena, dtype=dtype)
 
     def run_self_play(gen, stats):
         """This process's slice of the global game set, gathered over the

@@ -49,7 +49,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from die_e_tpu_torch.core.device import resolve_device
+from die_e_tpu_torch.core.device import COMPUTE_DTYPE, resolve_device
 from die_e_tpu_torch.nets.resnet import (
     BatchNorm,
     PolicyValueNet,
@@ -114,12 +114,13 @@ def create_train_state(spec, seed: int = 0, lr: float = 1e-3, wd: float = 1e-4,
     return TrainState(net=net, opt=make_optimizer(net.parameters(), lr, wd))
 
 
-def net_eval_fn(net: PolicyValueNet):
+def net_eval_fn(net: PolicyValueNet, dtype=COMPUTE_DTYPE):
     """``eval_fn(obs) -> (softmax policy, value)`` over the net in eval
-    mode, the shape the search expects."""
+    mode, the shape the search expects; the net computes in ``dtype``
+    (``core/device.py::compute_dtype``), its outputs are float32."""
 
     def eval_fn(obs):
-        return forward(net, obs)
+        return forward(net, obs, dtype=dtype)
 
     return eval_fn
 

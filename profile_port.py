@@ -21,6 +21,11 @@ It prints, with the card's name and power limit:
   that run's wall time, its device busy time and busy share, its device ops
   per simulation and those outside the forward, mask and step per descent
   level, and the kernels that take the most device time;
+* the inference forward at B = 1024 in float32 (TF32) and in bfloat16
+  (``DIE_E_BF16=1``'s dtype): its time from CUDA events, then 5 forwards
+  under the device profiler, with device busy time and ops per forward
+  and the kernels that take the most device time; then the same search
+  as above with the bf16 forward, without and under the profiler;
 * one training step of the 256x19 net at batch 256 (TF32 convolutions):
   its time from CUDA events over back-to-back steps, then 5 steps under
   ``torch.profiler`` tracing the device only, with their device busy
@@ -95,6 +100,24 @@ def device_profile(fn):
 SEED = 0
 
 
+def forward_dtype_profile(net, obs, reps=5):
+    """The inference forward in float32 and in bfloat16: CUDA-event time,
+    then ``reps`` forwards under the device profiler."""
+    for dtype in (torch.float32, torch.bfloat16):
+        def fn(dtype=dtype):
+            forward(net, obs, dtype=dtype)
+
+        ms = chip_smoke.time_ms(fn, 20, warmup=3)
+        wall, busy_us, n_ops, events = device_profile(lambda: [fn() for _ in range(reps)])
+        print(f"forward {dtype} at B={obs.shape[0]}: {ms:.3f} ms back to back (CUDA events, "
+              f"20 forwards); under the profiler device busy {busy_us / 1e3 / reps:.3f} ms, "
+              f"{n_ops / reps:.0f} device ops a forward; top device events (ms over {reps} "
+              "forwards, calls, name):", flush=True)
+        for e in events[:10]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} {e.count:7d}  {e.key[:110]}",
+                  flush=True)
+
+
 def train_step_profile(dev, batch=256, steps=5):
     """A train step's time, then ``steps`` steps under the device profiler."""
     import numpy as np
@@ -154,10 +177,10 @@ def main() -> int:
 
     result = {}
 
-    def search(its):
+    def search(its, dtype=torch.float32):
         result["res"] = alpha_search(
-            bg.ENV, lambda o: forward(net, o), states, gen, iterations=its, c=m.c,
-            dirichlet_alpha=m.dirichlet_alpha, dirichlet_epsilon=m.dirichlet_epsilon,
+            bg.ENV, lambda o: forward(net, o, dtype=dtype), states, gen, iterations=its,
+            c=m.c, dirichlet_alpha=m.dirichlet_alpha, dirichlet_epsilon=m.dirichlet_epsilon,
             negamax=m.negamax)
 
     search(4)  # warm-up
@@ -185,6 +208,23 @@ def main() -> int:
     print("top device events by time (ms, calls, name):", flush=True)
     for e in events[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} {e.count:7d}  {e.key[:110]}", flush=True)
+
+    forward_dtype_profile(net, obs)
+    search(4, torch.bfloat16)  # warm-up
+    walls = {torch.float32: [plain_wall], torch.bfloat16: []}
+    for dtype in (torch.bfloat16, torch.bfloat16, torch.float32):  # in turns with the first
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        search(iterations, dtype)
+        torch.cuda.synchronize()
+        walls[dtype].append(time.perf_counter() - t0)
+    wall, busy_us, n_ops, _ = device_profile(lambda: search(iterations, torch.bfloat16))
+    print("search without the profiler, ms (f32, bf16, bf16, f32): "
+          + ", ".join(f"{w * 1e3:.1f}" for w in (walls[torch.float32][0], *walls[torch.bfloat16],
+                                                  walls[torch.float32][1]))
+          + f"; with the bf16 forward under the profiler {wall * 1e3:.1f} ms, device busy "
+          f"{busy_us / 1e3:.1f} ms = {100 * busy_us / 1e6 / wall:.1f}%, "
+          f"{n_ops / iterations:.0f} device ops per simulation", flush=True)
     train_step_profile(dev)
     return 0
 

@@ -4,7 +4,8 @@ That machine has PyTorch but no JAX, flax, optax or orbax, and the JAX
 package is not to be imported there.  The CPU rehearsal runs every phase
 of ``chip_smoke.py`` at a tiny size in subprocesses where those are
 unimportable (in three parts, each with its own time limit: the port's
-phases 1-9; the learn phase with the ladder and the tournament; the
+phases 1-9 with the bf16, legal_single and bn-probe steps; the learn
+phase with the ladder and the tournament; the
 learning checks and the parity sweep); without a card the script's default run must fail without
 its result line, and so must a copy of the script alone.
 """
@@ -49,8 +50,8 @@ def test_cpu_rehearsal_runs_every_phase_without_jax():
     """Phases 1-9; 10-14 in the next two tests."""
     p = _run([*REHEARSAL, "--phases", "port"])
     assert p.returncode == 0, p.stdout + p.stderr
-    for phase in ("device:", "build:", "kernels:", "reference:", "self-play:", "learn:",
-                  "mcts:", "compaction:", "learn2:", "done:"):
+    for phase in ("device:", "build:", "kernels:", "reference:", "self-play:", "bf16:",
+                  "learn:", "bn-probe:", "mcts:", "compaction:", "learn2:", "done:"):
         assert phase in p.stdout, phase
     for phase in ("ladder:", "elo:", "ttt-learn:", "bg-demo:", "parity:"):
         assert phase not in p.stdout, phase
@@ -67,6 +68,25 @@ def test_cpu_rehearsal_runs_every_phase_without_jax():
     (run,) = (run_dir / "data" / "backgammon").iterdir()
     for i in range(3):
         assert (run / f"lrn-{i}" / "sp-0" / "memory.npz").exists()
+    # the bf16 phase: the forward within JAX's tolerance of f32, bf16 self-
+    # play (forced: compute_dtype is f32 on the cpu), then the CLI under
+    # DIE_E_BF16=1 at the f32 compute_dtype gives here
+    bf16 = p.stdout.split("] bf16: ", 1)[1]
+    assert "compute_dtype under DIE_E_BF16=1: torch.bfloat16 (forced" in bf16
+    assert "<= 0.05 of f32" in bf16
+    assert "self_play with net_eval_fn(net, torch.bfloat16): 2 rounds" in bf16
+    assert "(f32 in the self-play phase: " in bf16
+    cli = p.stdout.split("DIE_E_BF16=1 CLI play -1 model -2 random", 1)[1]
+    assert "the model's net_eval_fn got torch.float32; tally " in cli and " of 4;" in cli
+    assert not Path(cli.split("; in ", 1)[1].split()[0]).exists()  # the phase cleans up
+    # the probe on the learn phase's best and memory: one finite JSON line
+    probe = p.stdout.split("] bn-probe: ", 1)[1]
+    row = next(json.loads(line) for line in probe.splitlines() if line.startswith("{"))
+    assert row["metric"] == "bn_padding_probe" and row["rel_params_delta"] > 0
+    assert row["model"] == str(mdir / "best") and "/lrn-2/sp-0/memory.npz" in row["memory"]
+    assert "every number finite, the arms differ" in probe
+    # legal_single on the device against legal_digits
+    assert "legal_single over the 26 digits equals legal_digits for 60 seeded" in p.stdout
     shutil.rmtree(run_dir)
     # the kernels at the mcts arena's and get_next_move's shapes; the pure-
     # rollout and one-game searches against the cpu
@@ -115,8 +135,9 @@ def _rehearse_part(part):
               "learning": ("ttt-learn", "bg-demo", "parity")}[part]
     for phase in ("device", "build", *phases, "done"):
         assert f"] {phase}: " in p.stdout, phase
-    for phase in ("kernels", "reference", "self-play", "mcts", "compaction", "learn2",
-                  "ladder", "elo", "ttt-learn", "bg-demo", "parity", "learn"):
+    for phase in ("kernels", "reference", "self-play", "bf16", "bn-probe", "mcts",
+                  "compaction", "learn2", "ladder", "elo", "ttt-learn", "bg-demo", "parity",
+                  "learn"):
         if phase not in phases:
             assert f"] {phase}: " not in p.stdout, phase
     return p

@@ -1,6 +1,8 @@
 """The port's environments against the JAX package's, bit for bit.
 
-Backgammon: the dice stream, the action codec, ``legal_digits``, the legal
+Backgammon: the dice stream, the action codec, ``legal_digits``, the
+scalar oracle ``legal_single`` (against JAX's and against
+``legal_digits``), the legal
 mask on the cases of ``tests/test_mask_parity.py`` (JAX and the C++ oracle
 ``parity/oracle.py``) and on fuzzed positions, and ``step`` over seeded
 random games with every ``BgState`` field equal at every ply.  Tic-tac-toe:
@@ -134,6 +136,64 @@ def test_legal_digits_matches_jax():
     )(jnp.asarray(board, jnp.int32), jnp.asarray(bar, jnp.int32),
       jnp.asarray(player, jnp.int32), jnp.asarray(die, jnp.int32)))
     np.testing.assert_array_equal(got, want)
+
+
+def _single_cases(seed):
+    """60 seeded positions x 6 dice x both players, one row each: (board
+    [M, 24], bar [M, 2], player [M], die [M]) as numpy arrays; bar
+    checkers and bear-off shapes included (``random_position``)."""
+    rng = random.Random(seed)
+    cases = [random_position(rng) for _ in range(60)]
+    board = np.repeat(np.array([c[0] for c in cases]), 12, 0)
+    bar = np.repeat(np.array([c[1] for c in cases]), 12, 0)
+    player = np.tile(np.repeat([-1, 1], 6), len(cases))
+    die = np.tile(np.arange(1, 7), 2 * len(cases))
+    assert (bar > 0).any()  # entry from the bar
+    assert ((board[:, 6:] >= 0).all(-1) & (bar[:, 0] == 0)).any()  # a collectible side
+    return board, bar, player, die
+
+
+def _legal_single_all(board, bar, player, die):
+    """The port's legal_single over the 26 digits: [M, 26]."""
+    t = [torch.tensor(x) for x in (board, bar, player, die)]
+    return tbg.legal_single(t[0][:, None], t[1][:, None], t[2][:, None], t[3][:, None],
+                            torch.arange(26)[None]).numpy()
+
+
+@pytest.mark.parametrize("seed", [31337, 2024])
+def test_legal_single_matches_jax(seed):
+    board, bar, player, die = _single_cases(seed)
+    got = _legal_single_all(board, bar, player, die)
+
+    def one(b, br, p, d, f):
+        return jbg.legal_single(b, br, jnp.zeros(2, jnp.int32), p, d, f)
+
+    want = np.asarray(jax.jit(jax.vmap(jax.vmap(one, in_axes=(None,) * 4 + (0,)),
+                                       in_axes=(0,) * 4 + (None,)))(
+        *(jnp.asarray(x, jnp.int32) for x in (board, bar, player, die)), jnp.arange(26)))
+    assert got.shape == (len(board), 26) and got.any()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [31337, 2024])
+def test_legal_single_matches_legal_digits(seed):
+    """Counterpart of ``tests/test_mask_parity.py::
+    test_legal_digits_matches_legal_single`` on the port."""
+    board, bar, player, die = _single_cases(seed)
+    got = tbg.legal_digits(*(torch.tensor(x) for x in (board, bar, player, die))).numpy()
+    np.testing.assert_array_equal(got, _legal_single_all(board, bar, player, die))
+
+
+def test_legal_single_broadcasts():
+    """One position against many digits, and one digit: the result has the
+    broadcast batch shape."""
+    board, bar, player, die = (torch.tensor(x) for x in _single_cases(31337))
+    f = torch.arange(26)
+    one = tbg.legal_single(board[0], bar[0], player[0], die[0], f)
+    assert one.shape == (26,)
+    assert torch.equal(one, tbg.legal_digits(board[:1], bar[:1], player[:1], die[:1])[0])
+    col = tbg.legal_single(board, bar, player, die, torch.tensor(24))
+    assert torch.equal(col, tbg.legal_digits(board, bar, player, die)[:, 24])
 
 
 @pytest.mark.parametrize("i", range(len(FIXED_CASES)))

@@ -125,7 +125,12 @@ def stubs(monkeypatch):
         return str(path)
 
     monkeypatch.setattr(tckpt, "load_net", load_net)
-    monkeypatch.setattr(tladder, "net_eval_fn", lambda net: net)
+
+    def net_eval_fn(net, dtype):
+        assert dtype == torch.float32  # compute_dtype on the cpu
+        return net
+
+    monkeypatch.setattr(tladder, "net_eval_fn", net_eval_fn)
     # the tournament's 300 bootstrap fits take seconds each side: both run
     # 3 of them (the packages' bootstrap_elo are equal, test_torch_records.py)
     for mod, name in ((jelo, "bootstrap_elo"), (telo, "bootstrap_elo")):
